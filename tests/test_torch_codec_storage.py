@@ -158,17 +158,23 @@ class TestMetainfo:
                 assert port.info_hash == ref.info_hash
 
     def test_parse_any_metainfo_is_v1_only(self):
+        # parse_any_metainfo reads v1 AND pure-v2 (BEP 52) torrents now,
+        # with the reference's session identity for each; garbage is None
         data = make_torrent_bytes()
         meta, ih = mi.parse_any_metainfo(data)
-        assert ih == ref_metainfo.parse_any_metainfo(data)[1]
+        assert ih == ref_metainfo.parse_any_metainfo(data)[1] == meta.info_hash
         assert mi.parse_any_metainfo(b"garbage") is None
+        assert ref_metainfo.parse_any_metainfo(b"garbage") is None
         v2 = bc.bencode({
             b"announce": b"http://t",
             b"info": {b"meta version": 2, b"name": b"x", b"piece length": 16384,
                       b"file tree": {b"x": {b"": {b"length": 1, b"pieces root": b"\x00" * 32}}}},
         })
-        with pytest.raises(NotImplementedError):
-            mi.parse_any_metainfo(v2)
+        meta, ih = mi.parse_any_metainfo(v2)
+        ref_meta, ref_ih = ref_metainfo.parse_any_metainfo(v2)
+        assert ih == ref_ih == meta.truncated_info_hash and len(ih) == 20
+        assert meta.info_hash_v2 == ref_meta.info_hash_v2
+        assert meta.info.files[0].path == ref_meta.info.files[0].path == ("x",)
 
     def test_info_from_reference(self):
         files = [(100, [b"a"], False), (16284, [b".pad", b"16284"], True), (9, [b"b"], False)]

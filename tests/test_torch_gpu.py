@@ -1,4 +1,4 @@
-"""The CUDA kernel on the card: tests marked ``gpu``.
+"""The CUDA kernels on the card: tests marked ``gpu``.
 
 They need an NVIDIA GPU with nvcc, decide so inside a fixture, and skip
 on hosts without one. This file imports neither jax nor the reference
@@ -6,8 +6,9 @@ package, so it also runs where jax is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
-The kernel is held against its plain PyTorch version on the same device
-tensors and against hashlib; digests compare exactly.
+Each kernel is held against its plain PyTorch version on the same device
+tensors and against hashlib; digests compare exactly. The v2 plane's
+authoring and rechecks on the card are held against ``hasher="cpu"``.
 """
 
 import hashlib
@@ -16,14 +17,21 @@ import numpy as np
 import pytest
 import torch
 
+from torrent_tpu_torch.codec.bencode import bencode
 from torrent_tpu_torch.codec.metainfo import InfoDict
 from torrent_tpu_torch.entry import entry
+from torrent_tpu_torch.models.merkle import merkle_root
+from torrent_tpu_torch.models.v2 import build_hybrid, build_v2, verify_v2
 from torrent_tpu_torch.models.verifier import GPUVerifier
-from torrent_tpu_torch.ops.padding import pad_pieces, words_to_digests
+from torrent_tpu_torch.ops.padding import digests_to_words, pad_pieces, words_to_digests
 from torrent_tpu_torch.ops.sha1_cuda import make_sha1_fn, sha1_pieces_cuda
 from torrent_tpu_torch.ops.sha1_torch import IV, sha1_pieces_torch, words_to_numpy
+from torrent_tpu_torch.ops.sha256_cuda import make_sha256_fn, sha256_pairs_cuda, sha256_pieces_cuda
+from torrent_tpu_torch.ops.sha256_torch import IV as IV256
+from torrent_tpu_torch.ops.sha256_torch import sha256_pairs_torch, sha256_pieces_torch
 from torrent_tpu_torch.parallel.verify import verify_pieces
-from torrent_tpu_torch.storage.storage import MemoryStorage, Storage
+from torrent_tpu_torch.session.v2 import v2_session_info
+from torrent_tpu_torch.storage.storage import FsStorage, MemoryStorage, Storage
 
 pytestmark = pytest.mark.gpu
 
@@ -130,3 +138,124 @@ def test_entry_on_card(cuda):
     forward, args = entry()
     assert args[0].is_cuda and forward(*args).all()
     assert make_sha1_fn() is sha1_pieces_cuda
+
+
+# ---------------------------------------------------------------- SHA-256
+
+
+@pytest.mark.parametrize(
+    "lens",
+    [
+        [0, 1, 55, 56, 63, 64, 65, 119, 120, 127, 128, 300, 8191, 16383, 16384],
+        [16384] * 33,
+        [320, 64, 256, 130],
+    ],
+)
+def test_sha256_kernel_matches_plain_and_hashlib(cuda, lens):
+    rng = np.random.default_rng(len(lens) + 100)
+    pieces = [rng.bytes(n) for n in lens]
+    data, nb = on_card(pieces, cuda)
+    got = sha256_pieces_cuda(data, nb)
+    got32 = sha256_pieces_cuda(data.view(torch.int32), nb)
+    plain = sha256_pieces_torch(data, nb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain) and torch.equal(got32, plain)
+    assert digests(got) == [hashlib.sha256(p).digest() for p in pieces]
+
+
+def test_sha256_nist_vectors_including_a_million_a(cuda):
+    msgs = [b"", b"abc", b"abcdbcdecdefdefgefghfghighijhijkijkljklmklmnlmnomnopnopq", b"a" * 1_000_000]
+    want = [
+        "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855",
+        "ba7816bf8f01cfea414140de5dae2223b00361a396177a9cb410ff61f20015ad",
+        "248d6a61d20638b8e5c026930c3e6039a33ce45964ff2167f6ecedd419db06c1",
+        "cdc76e5c9914fb9281a1c7e284d73e67f1809a48a497200e046d39ccc7112cd0",
+    ]
+    data, nb = on_card(msgs, cuda)
+    assert [d.hex() for d in digests(sha256_pieces_cuda(data, nb))] == want
+
+
+def test_sha256_sentinel_rows_write_the_iv(cuda):
+    pieces = [b"x" * n for n in (10, 100, 1000, 0)]
+    data, nb = on_card(pieces, cuda, sentinels=(1, 3))
+    words = words_to_numpy(sha256_pieces_cuda(data, nb))
+    assert tuple(words[1]) == IV256 and tuple(words[3]) == IV256
+    assert words_to_digests(words[[0, 2]]) == [hashlib.sha256(p).digest() for p in (pieces[0], pieces[2])]
+
+
+@pytest.mark.parametrize("pairs", [1, 33, 4096])
+def test_sha256_pairs_match_plain_and_hashlib(cuda, pairs):
+    rng = np.random.default_rng(pairs)
+    kids = [rng.bytes(32) for _ in range(2 * pairs)]
+    words = torch.from_numpy(digests_to_words(kids, words=8).reshape(pairs, 16).view(np.int32)).to(cuda)
+    before = sha256_pairs_cuda.launches
+    got = sha256_pairs_cuda(words)
+    assert sha256_pairs_cuda.launches == before + 1
+    assert torch.equal(got, sha256_pairs_torch(words))
+    assert digests(got) == [hashlib.sha256(kids[i] + kids[i + 1]).digest() for i in range(0, 2 * pairs, 2)]
+
+
+def test_sha256_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    data, nb = on_card([b"abc", b"def"], cuda)
+    with pytest.raises(ValueError):
+        sha256_pieces_cuda(data.t(), nb)
+    with pytest.raises(ValueError):
+        sha256_pieces_cuda(data, nb.cpu())
+    wide = torch.zeros((2, 40), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        sha256_pairs_cuda(wide[:, :16])  # not contiguous
+    with pytest.raises(ValueError):
+        sha256_pairs_cuda(wide.view(-1)[1:17].view(1, 16))  # 4-byte aligned only
+    assert make_sha256_fn() is sha256_pieces_cuda
+
+
+def test_merkle_root_on_card_matches_cpu(cuda):
+    rng = np.random.default_rng(7)
+    grid = rng.integers(0, 2**32, size=(5, 16, 8), dtype=np.uint32)
+    before = sha256_pairs_cuda.launches
+    assert (merkle_root(grid) == merkle_root(grid, device="cpu")).all()
+    assert sha256_pairs_cuda.launches == before + 4
+
+
+V2_PLEN = 4 * 16384
+
+
+def v2_corpus(tmp_path):
+    rng = np.random.default_rng(21)
+    files = []
+    for rel, size in (("a.bin", 3 * V2_PLEN + 100), ("b/c.bin", 5000), ("d.bin", 8 * V2_PLEN), ("e", 0)):
+        path = tmp_path / "payload" / rel
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(rng.bytes(size))
+        files.append((tuple(rel.split("/")), str(path)))
+    return files
+
+
+def test_build_v2_and_hybrid_on_card_match_cpu(cuda, tmp_path):
+    files = v2_corpus(tmp_path)
+    before = (sha256_pieces_cuda.launches, sha256_pairs_cuda.launches, sha1_pieces_cuda.launches)
+    gpu = build_v2(files, "payload", V2_PLEN)
+    cpu = build_v2(files, "payload", V2_PLEN, hasher="cpu")
+    assert bencode(gpu.raw) == bencode(cpu.raw)
+    blob_gpu, _ = build_hybrid(files, "payload", V2_PLEN)
+    blob_cpu, _ = build_hybrid(files, "payload", V2_PLEN, hasher="cpu")
+    assert blob_gpu == blob_cpu
+    after = (sha256_pieces_cuda.launches, sha256_pairs_cuda.launches, sha1_pieces_cuda.launches)
+    assert all(a > b for a, b in zip(after, before))
+
+
+def test_verify_v2_and_verify_pieces_on_card(cuda, tmp_path):
+    files = v2_corpus(tmp_path)
+    meta = build_v2(files, "payload", V2_PLEN, hasher="cpu")
+    lookup = dict(files)
+    info = v2_session_info(meta.info, meta.piece_layers)
+    assert all(ok.all() for ok in verify_v2(lookup.get, meta).values())
+    assert verify_pieces(Storage(FsStorage(tmp_path), info), info, hasher="gpu", batch_size=3).all()
+    with open(lookup[("d.bin",)], "r+b") as f:
+        f.seek(5 * V2_PLEN + 9)
+        f.write(b"\xff\x00")
+    res = verify_v2(lookup.get, meta)
+    assert list(np.nonzero(~res[("d.bin",)])[0]) == [5]
+    gpu = verify_pieces(Storage(FsStorage(tmp_path), info), info, hasher="gpu", batch_size=3)
+    cpu = verify_pieces(Storage(FsStorage(tmp_path), info), info, hasher="cpu")
+    assert (gpu == cpu).all() and (~gpu).sum() == 1

@@ -38,12 +38,19 @@ def test_package_has_the_slice():
         "torrent_tpu_torch.parallel.verify",
         "torrent_tpu_torch.ops.sha1_cuda",
         "torrent_tpu_torch.ops.sha1_torch",
+        "torrent_tpu_torch.ops.sha256_cuda",
+        "torrent_tpu_torch.ops.sha256_torch",
+        "torrent_tpu_torch.codec.metainfo_v2",
+        "torrent_tpu_torch.session.v2",
+        "torrent_tpu_torch.models.merkle",
+        "torrent_tpu_torch.models.v2",
         "torrent_tpu_torch.tools.make_torrent",
         "torrent_tpu_torch.compat",
         "torrent_tpu_torch.entry",
     ):
         assert name in MODULES
     assert (PACKAGE / "csrc" / "sha1.cu").is_file()
+    assert (PACKAGE / "csrc" / "sha256.cu").is_file()
 
 
 def test_importing_every_module_loads_no_jax_and_no_reference():

@@ -113,12 +113,25 @@ class TestVerifyGpuHasherOnCpu:
             verify_pieces(storage, info, hasher="tpu")
 
     def test_v2_info_not_ported(self):
-        class V2Info:
-            v2 = True
-            num_pieces = 1
+        # v2 session infos route to the merkle recheck, as in the
+        # reference: the same seeded v2 torrent gives the reference's
+        # bitfield on both hashers
+        from torrent_tpu.models.v2 import build_v2 as ref_build_v2
+        from torrent_tpu.session.v2 import v2_session_info as ref_v2_session_info
+        from torrent_tpu_torch.compat import v2_session_info_from_reference
 
-        with pytest.raises(NotImplementedError):
-            verify_pieces(None, V2Info(), hasher="gpu", device=CPU)
+        data = np.random.default_rng(16).bytes(20_000)
+        ref_meta = ref_build_v2([(("f",), data)], name="t", piece_length=16384, hasher="cpu")
+        ref_info = ref_v2_session_info(ref_meta.info, ref_meta.piece_layers)
+        info = v2_session_info_from_reference(ref_info)
+        storage, ref_store = Storage(MemoryStorage(), info), RefStorage(RefMemoryStorage(), ref_info)
+        for s in (storage, ref_store):
+            s.method.set(("t", "f"), 0, data)
+            s.method.set(("t", "f"), 17_000, b"!")  # piece 1
+        ref = np.asarray(ref_verify_pieces(ref_store, ref_info, hasher="tpu"))
+        assert ref.tolist() == [True, False]
+        assert (verify_pieces(storage, info, hasher="gpu", device=CPU) == ref).all()
+        assert (verify_pieces(storage, info, hasher="cpu") == ref).all()
 
     def test_empty_torrent(self):
         info = InfoDict(name="e", piece_length=4096, pieces=(), length=0)

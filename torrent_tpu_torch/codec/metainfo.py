@@ -124,22 +124,19 @@ class Metainfo:
 
 
 def parse_any_metainfo(data: bytes):
-    """``(meta, info_hash)`` for a v1 .torrent; None when it does not
-    parse. A pure-v2 (BEP 52) torrent raises ``NotImplementedError``:
-    the v2 plane is a later slice of this package."""
+    """``(meta, session_info_hash)`` for a v1 OR pure-v2 .torrent; None
+    when neither format parses. The hash is each format's session
+    identity — SHA-1, or BEP 52's truncated SHA-256 — i.e. what a
+    client keys torrents by."""
     m = parse_metainfo(data)
     if m is not None:
         return m, m.info_hash
-    # BEP 52 v2 torrents need codec/metainfo_v2.py, which this package
-    # has not ported yet; a v2 torrent must not read as "not a torrent"
-    try:
-        decoded = bdecode(data)
-    except BencodeError:
+    from torrent_tpu_torch.codec.metainfo_v2 import parse_metainfo_v2
+
+    v2 = parse_metainfo_v2(data)
+    if v2 is None:
         return None
-    info = decoded.get(b"info") if isinstance(decoded, dict) else None
-    if isinstance(info, dict) and info.get(b"meta version") == 2:
-        raise NotImplementedError("BEP 52 (v2) metainfo is not ported yet")
-    return None
+    return v2, v2.truncated_info_hash
 
 
 def _hint_sources(raw: dict):

@@ -1,7 +1,8 @@
 """State carried across from the reference package.
 
 The system has no weights: what both packages must share is the torrent
-and the staged batches. These helpers take the reference's objects and
+(v1 info dicts, v2 metainfo and v2 session geometry) and the staged
+batches. These helpers take the reference's objects and
 numpy arrays by duck typing, so this package never imports
 ``torrent_tpu``; the differential tests use them to feed both packages
 identical input.
@@ -13,6 +14,8 @@ import numpy as np
 import torch
 
 from torrent_tpu_torch.codec.metainfo import FileEntry, InfoDict
+from torrent_tpu_torch.codec.metainfo_v2 import InfoDictV2, MetainfoV2, V2File
+from torrent_tpu_torch.session.v2 import V2SessionInfo
 from torrent_tpu_torch.utils.device import resolve_device
 
 
@@ -37,6 +40,50 @@ def info_from_reference(obj) -> InfoDict:
         pieces=tuple(bytes(p) for p in obj.pieces),
         length=int(obj.length),
         files=files,
+    )
+
+
+def metainfo_v2_from_reference(obj) -> MetainfoV2:
+    """This package's ``MetainfoV2`` from the reference's (or any object
+    with ``announce``, ``info``, ``info_hash_v2``, ``piece_layers`` and
+    ``raw``, whose ``info`` has ``name``, ``piece_length``, ``files`` and
+    ``private``, and each file ``path``, ``length`` and ``pieces_root``)."""
+    info = obj.info
+    return MetainfoV2(
+        announce=obj.announce,
+        info=InfoDictV2(
+            name=info.name,
+            piece_length=int(info.piece_length),
+            files=tuple(
+                V2File(path=tuple(f.path), length=int(f.length), pieces_root=bytes(f.pieces_root))
+                for f in info.files
+            ),
+            private=bool(info.private),
+        ),
+        info_hash_v2=bytes(obj.info_hash_v2),
+        piece_layers={
+            bytes(k): tuple(bytes(d) for d in v) for k, v in obj.piece_layers.items()
+        },
+        raw=obj.raw,
+    )
+
+
+def v2_session_info_from_reference(obj) -> V2SessionInfo:
+    """This package's ``V2SessionInfo`` from the reference's (the flat
+    piece geometry of a v2 torrent: expected roots, per-piece sizes and
+    leaf-pad targets, and the file table)."""
+    files = None
+    if obj.files is not None:
+        files = tuple(FileEntry(length=int(f.length), path=tuple(f.path)) for f in obj.files)
+    return V2SessionInfo(
+        name=obj.name,
+        piece_length=int(obj.piece_length),
+        pieces=tuple(bytes(p) for p in obj.pieces),
+        length=int(obj.length),
+        payload_length=int(obj.payload_length),
+        files=files,
+        piece_sizes=tuple(int(n) for n in obj.piece_sizes),
+        piece_pad_leaves=tuple(int(n) for n in obj.piece_pad_leaves),
     )
 
 

@@ -12,20 +12,30 @@ Two libraries are built here:
   means ``load()`` returns None and ``Storage.read_batch`` takes its
   pure-Python read path: this is host IO, and both paths give the same
   bytes;
-- the CUDA kernels (``ops/sha1_cuda.py`` builds ``csrc/sha1.cu`` with
-  nvcc through :func:`compile_library`). There a failed build raises:
-  no device path falls back.
+- the CUDA kernels (``csrc/sha1.cu`` and ``csrc/sha256.cu``, built by
+  ``ops/sha1_cuda.py`` and ``ops/sha256_cuda.py`` through
+  :func:`build_cuda`). There a missing ``nvcc`` or a failed build
+  raises: no device path falls back.
 """
 
 from __future__ import annotations
 
 import os
 import pathlib
+import shutil
 import subprocess
 import tempfile
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torrent_tpu_torch"
+
+# CUDA C++ for Hopper with a plain C interface; -Xptxas -v reports each
+# kernel's registers, spills and shared memory
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
 
 _SRC = pathlib.Path(__file__).with_name("io_engine.cpp")
 _LIB = BUILD_DIR / "libtorrent_tpu_torch_io.so"
@@ -56,6 +66,40 @@ def compile_library(
         if os.path.exists(tmp):
             os.unlink(tmp)
     return proc
+
+
+def nvcc_path(source: pathlib.Path) -> str:
+    """The CUDA compiler: ``PATH``, then ``$CUDA_HOME``/``/usr/local/cuda``."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    candidate = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError(
+        "nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): the kernel "
+        f"is built from {source} at first use"
+    )
+
+
+def build_cuda(source: pathlib.Path, lib: pathlib.Path, force: bool = False) -> str:
+    """Compile a kernel source with nvcc if its library is missing or stale.
+
+    Returns nvcc's report (``-Xptxas -v``: registers, spills, shared
+    memory per kernel), or ``""`` when the built library was current.
+    Raises RuntimeError when nvcc is missing or fails.
+    """
+    if not force and not is_stale(source, lib):
+        return ""
+    nvcc = nvcc_path(source)
+    try:
+        proc = compile_library(
+            lambda out: [nvcc, *NVCC_FLAGS, str(source), "-o", out], lib, timeout=600
+        )
+    except subprocess.CalledProcessError as e:
+        raise RuntimeError(f"nvcc failed on {source}:\n{e.stdout}{e.stderr}") from e
+    return proc.stdout + proc.stderr
 
 
 def build(force: bool = False) -> pathlib.Path | None:

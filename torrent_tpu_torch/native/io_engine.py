@@ -4,7 +4,8 @@
 staging buffer using the C++ pread thread pool; ``Storage.read_batch``
 routes through it automatically when the engine is available (see
 storage/storage.py), with the pure-Python path otherwise — identical
-semantics either way.
+semantics either way. ``read_segments`` is the contiguous-buffer form
+the v2 plane streams file chunks with (models/v2.py ``_iter_source``).
 """
 
 from __future__ import annotations
@@ -60,6 +61,21 @@ class NativeIOEngine:
         if self._handle:
             self._lib.tt_io_destroy(self._handle)
             self._handle = None
+
+    def read_segments(
+        self,
+        paths: list[str],
+        segments: list[tuple[int, int, int, int]],
+        out: np.ndarray,
+    ) -> None:
+        """Read ``(file_index, file_offset, out_offset, length)`` segments.
+
+        ``out`` must be a writable C-contiguous uint8 array; raises
+        ``NativeIOError`` if any segment cannot be fully read.
+        """
+        if out.dtype != np.uint8 or not out.flags["C_CONTIGUOUS"] or not out.flags["WRITEABLE"]:
+            raise ValueError("out must be a writable C-contiguous uint8 array")
+        self.read_into(paths, segments, out.ctypes.data, out.size, keepalive=out)
 
     def read_into(
         self,

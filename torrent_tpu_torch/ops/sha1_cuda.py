@@ -20,29 +20,16 @@ or launch to the plain version.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
 
 import torch
 
-from torrent_tpu_torch.native.build import (
-    BUILD_DIR,
-    PACKAGE_DIR,
-    compile_library,
-    is_stale,
-)
+from torrent_tpu_torch.native.build import BUILD_DIR, PACKAGE_DIR, build_cuda
 from torrent_tpu_torch.ops.sha1_torch import check_batch, sha1_pieces_torch
 from torrent_tpu_torch.utils.device import resolve_device
 from torrent_tpu_torch.utils.locks import named_lock
 
 SOURCE = PACKAGE_DIR / "csrc" / "sha1.cu"
 LIBRARY = BUILD_DIR / "libtorrent_tpu_torch_sha1.so"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
-)
 
 # Integer instructions one 64-byte block needs at the least, counted as
 # Hopper issues them: 16 byteswaps (PRMT); 64 schedule words of two LOP3
@@ -60,38 +47,10 @@ _lib = None
 _lib_lock = named_lock("ops.sha1_cuda._lib_lock")
 
 
-def nvcc_path() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    candidate = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(candidate):
-        return candidate
-    raise RuntimeError(
-        "nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): the SHA-1 kernel "
-        f"is built from {SOURCE} at first use"
-    )
-
-
 def build(force: bool = False) -> str:
-    """Compile ``csrc/sha1.cu`` if its library is missing or stale.
-
-    Returns nvcc's report (``-Xptxas -v``: registers, spills, shared
-    memory per kernel), or ``""`` when the built library was current.
-    """
-    if not force and not is_stale(SOURCE, LIBRARY):
-        return ""
-    nvcc = nvcc_path()
-    try:
-        proc = compile_library(
-            lambda out: [nvcc, *NVCC_FLAGS, str(SOURCE), "-o", out],
-            LIBRARY,
-            timeout=600,
-        )
-    except subprocess.CalledProcessError as e:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{e.stdout}{e.stderr}") from e
-    return proc.stdout + proc.stderr
+    """Compile ``csrc/sha1.cu`` if its library is missing or stale; returns
+    nvcc's ptxas report, or ``""`` when the built library was current."""
+    return build_cuda(SOURCE, LIBRARY, force)
 
 
 def _load():

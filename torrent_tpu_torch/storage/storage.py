@@ -10,10 +10,11 @@ shaped for the verify plane ``[n_pieces, piece_length]``. Missing/short
 files zero-fill (a zero-filled piece simply fails its SHA1 check, which is
 exactly the resume-recheck semantics).
 
-This is the v1 subset of ``torrent_tpu/storage/storage.py``: the
-partfile routing of deselected files, zero-copy egress handles, the
-BEP 52 piece-aligned layout and the written-map resume helpers belong
-to the session and v2 slices. The reference's pipeline-ledger "read"
+This is the verify-plane subset of ``torrent_tpu/storage/storage.py``,
+with its BEP 52 piece-aligned file table (``info.piece_aligned``, the v2
+session geometry of ``session/v2.py``): the partfile routing of
+deselected files, zero-copy egress handles and the written-map resume
+helpers belong to the session slice. The reference's pipeline-ledger "read"
 accounting is left out on purpose: the ledger is not ported yet.
 """
 
@@ -64,6 +65,15 @@ class Storage:
         self._files: list[tuple[tuple[str, ...] | None, int, int]] = []
         if info.files is None:
             self._files.append(((info.name,), 0, info.length))
+        elif getattr(info, "piece_aligned", False):
+            # BEP 52 piece space: every file starts on a piece boundary;
+            # the tail gap after a short last piece is virtual (never on
+            # disk, never requested — pieces don't span files in v2)
+            plen = info.piece_length
+            pos = 0
+            for entry in info.files:
+                self._files.append(((info.name, *entry.path), pos, entry.length))
+                pos += -(-entry.length // plen) * plen
         else:
             pos = 0
             for entry in info.files:
