@@ -10,10 +10,13 @@ Phases (any failure exits non-zero, and no phase hides an error):
 2. Build: the SHA-1 and SHA-256 kernels (``torrent_tpu_torch/csrc/
    sha1.cu`` and ``sha256.cu``, one nvcc for sm_90a each, started
    together) and the host pread pool, from the checkout's sources; prints
-   ptxas' registers, spills and shared memory.
+   ptxas' registers, spills and static shared memory, the SHA-1 kernel's
+   dynamic shared memory, each kernel's SASS instruction count and the
+   SHA-1 kernel's SASS opcode mix.
 3. Each kernel against its plain PyTorch version on the card, bit for
    bit, and both against hashlib. SHA-1: the NIST vectors, a ragged
-   batch (lengths 0 … 256 KiB-1), sentinel rows, one full 4096 x 256 KiB
+   batch (lengths 0 … 256 KiB-1), sentinel rows, a 33-row and a 4097-row
+   batch (a partial last CTA of 32 pieces), one full 4096 x 256 KiB
    batch. SHA-256: the NIST vectors (the 1,000,000 x "a" vector against
    hashlib only: the plain version would take minutes over its 15,626
    blocks), ragged lengths 0 … 16 KiB with sentinel rows, u8 and
@@ -40,7 +43,9 @@ Phases (any failure exits non-zero, and no phase hides an error):
    counter is reset before this phase; the SHA-256 row and pair kernels
    (and, through hybrid authoring, SHA-1) must have launched in it.
 6. Times, from CUDA events after warm-up (SHA-1 at 4096 x 256 KiB and
-   4096 x 1 MiB, SHA-256 at the 32768-leaf authoring launch and the
+   4096 x 1 MiB, a batch sweep of SHA-1 at 1, 256, 4096 and 16384 rows
+   x 256 KiB on rows filled on the card, spot-checked against hashlib,
+   SHA-256 at the 32768-leaf authoring launch and the
    16384-leaf recheck launch, one 65536-pair merkle level, and each plain
    version) and from the host clock (end-to-end rechecks, authoring and
    the hashlib baselines of the 2 GiB file), each printed beside the
@@ -91,6 +96,9 @@ NIST = (
     ),
 )
 RAGGED = (0, 1, 55, 56, 63, 64, 65, 119, 120, 127, 128, 300, 16 * 1024, PIECE - 1)
+# SHA-1 batches around the kernel's 32-piece CTA: rows, longest length
+CTA_BATCHES = ((33, 16 * 1024), (4097, 4096))
+SWEEP_ROWS = (1, 256, 4096, 16384)  # the phase-6 batch sweep at 256 KiB
 NIST256 = (
     (b"", "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855"),
     (b"abc", "ba7816bf8f01cfea414140de5dae2223b00361a396177a9cb410ff61f20015ad"),
@@ -147,22 +155,27 @@ def sm_clock() -> str:
     ).stdout.strip()
 
 
-def sass_counts(lib) -> dict:
-    """SASS instructions per kernel of a built library, from ``cuobjdump
-    -sass`` (prologue, loads and stores included); {} without cuobjdump."""
+def sass_opcodes(lib) -> dict:
+    """SASS opcodes per kernel of a built library, from ``cuobjdump -sass``
+    (prologue, loads and stores included), as {kernel: Counter}; {}
+    without cuobjdump."""
+    from collections import Counter
+
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return {}
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=120).stdout
-    counts: dict = {}
+    ops: dict = {}
     name = None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = 0
-        elif name is not None and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
-            counts[name] += 1
-    return counts
+            ops[name] = Counter()
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if name is not None and m:
+            ops[name][m.group(1)] += 1
+    return ops
 
 
 def main() -> dict:
@@ -226,9 +239,15 @@ def main() -> dict:
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "smem" in line or "Compiling entry" in line:
                 log(f"  ptxas ({name}): {line.strip()}")
+    log(
+        f"  shared memory (sha1): {sha1_cuda.smem_bytes()} bytes of dynamic shared memory per CTA "
+        f"of 32 pieces, {sha1_cuda.ctas_per_sm()} CTAs per SM"
+    )
     for mod in (sha1_cuda, sha256_cuda):
-        for fn, n in sass_counts(mod.LIBRARY).items():
-            log(f"  sass ({mod.LIBRARY.name}): {fn} {n} instructions")
+        for fn, ops in sass_opcodes(mod.LIBRARY).items():
+            log(f"  sass ({mod.LIBRARY.name}): {fn} {sum(ops.values())} instructions")
+            if mod is sha1_cuda:
+                log(f"  sass mix ({mod.LIBRARY.name}): {' '.join(f'{k}={v}' for k, v in ops.most_common())}")
 
     def mismatches(a, b) -> int:
         return int((a != b).any(dim=1).sum())
@@ -278,6 +297,14 @@ def main() -> dict:
     got = digests(k)
     for i, x in enumerate(ragged):
         check(got[i] == (iv if i in sentinels else hashlib.sha1(x).digest()), f"sentinel batch row {i}")
+    # batches that end in a partial CTA of the kernel's 32 pieces
+    for rows, longest in CTA_BATCHES:
+        pieces = [rng.bytes(int(n)) for n in rng.integers(0, longest, size=rows)]
+        k, k32, p = kernel_and_plain(sha1_cuda.sha1_pieces_cuda, sha1_pieces_torch, pieces, (1, rows - 1))
+        total_mismatch += mismatches(k, p) + mismatches(k32, p)
+        got = digests(k)
+        for i, x in enumerate(pieces):
+            check(got[i] == (iv if i in (1, rows - 1) else hashlib.sha1(x).digest()), f"{rows}-row batch row {i}")
     # one full recheck batch: 4096 pieces of 256 KiB
     full = [rng.bytes(PIECE) for _ in range(BATCH)]
     padded, nblocks = pad_pieces(full)
@@ -294,7 +321,10 @@ def main() -> dict:
     del full, want
     log(f"kernels: sha1_cuda launches={sha1_cuda.sha1_pieces_cuda.launches} mismatches={total_mismatch}")
     check(total_mismatch == 0 and max_abs_err == 0, "kernel disagrees with its plain version")
-    log(f"phase 3: sha1 kernel == plain == hashlib on NIST, ragged, sentinel and {BATCH} x 256 KiB batches")
+    log(
+        f"phase 3: sha1 kernel == plain == hashlib on NIST, ragged, sentinel, "
+        f"{', '.join(str(r) for r, _ in CTA_BATCHES)}-row and {BATCH} x 256 KiB batches"
+    )
 
     # SHA-256 rows: NIST vectors, ragged lengths with sentinels, u8 and int32
     mis256 = 0
@@ -651,29 +681,48 @@ def main() -> dict:
         # blocks read, counts read, words written
         return bound_ms(blocks * 64 + rows * 4 + rows * 4 * words_out, blocks * ops_per_block)
 
+    def device_rows(rows: int, piece: int):
+        """``rows`` seeded random pieces of ``piece`` bytes, made and padded
+        on the card as ops/padding.py pads them, and their block counts."""
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + rows)
+        d = torch.randint(0, 256, (rows, padded_len_for(piece)), dtype=torch.uint8, device=dev, generator=g)
+        nblk = int(num_blocks_for(piece))
+        d[:, piece:] = 0
+        d[:, piece] = 0x80
+        d[:, nblk * 64 - 8 : nblk * 64] = torch.tensor(
+            list((piece * 8).to_bytes(8, "big")), dtype=torch.uint8, device=dev
+        )
+        return d, torch.full((rows,), nblk, dtype=torch.int32, device=dev)
+
+    def timed_and_checked(d, n, piece: int, label: str):
+        """The SHA-1 kernel's ms per launch on (d, n), and a few rows of
+        one launch's output against hashlib."""
+        ms = time_kernel(sha1_cuda.sha1_pieces_cuda, d, n)
+        got = digests(sha1_cuda.sha1_pieces_cuda(d, n))
+        rows = d.shape[0]
+        for i in sorted({0, 1, 31, 32, rows // 2, rows - 1} & set(range(rows))):
+            want = hashlib.sha1(d[i, :piece].cpu().numpy().tobytes()).digest()
+            check(got[i] == want, f"{label}: row {i} disagrees with hashlib")
+        return ms
+
     ms_256 = time_kernel(sha1_cuda.sha1_pieces_cuda, d256, n256)
     bound_256, by_256 = rows_bound(n256, 5, sha1_cuda.OPS_PER_BLOCK)
     del d256
-    # 4096 x 1 MiB, padded on the device (every row a full 1 MiB piece)
+    # 4096 x 1 MiB (every row a full 1 MiB piece)
     mib = 1 << 20
     rows = BATCH
-    p_mib = padded_len_for(mib)
-    g = torch.Generator(device=dev)
-    g.manual_seed(SEED)
-    d1m = torch.randint(0, 256, (rows, p_mib), dtype=torch.uint8, device=dev, generator=g)
-    nblk = int(num_blocks_for(mib))
-    d1m[:, mib:] = 0
-    d1m[:, mib] = 0x80
-    d1m[:, nblk * 64 - 8 : nblk * 64] = torch.tensor(
-        list((mib * 8).to_bytes(8, "big")), dtype=torch.uint8, device=dev
-    )
-    n1m = torch.full((rows,), nblk, dtype=torch.int32, device=dev)
-    ms_1m = time_kernel(sha1_cuda.sha1_pieces_cuda, d1m, n1m)
+    d1m, n1m = device_rows(rows, mib)
+    ms_1m = timed_and_checked(d1m, n1m, mib, "1 MiB rows")
     bound_1m, by_1m = rows_bound(n1m, 5, sha1_cuda.OPS_PER_BLOCK)
-    spot = digests(sha1_cuda.sha1_pieces_cuda(d1m[:2].contiguous(), n1m[:2]))
-    host = d1m[:2, :mib].cpu().numpy()
-    check(spot == [hashlib.sha1(host[i].tobytes()).digest() for i in range(2)], "1 MiB rows wrong")
     del d1m
+    # the batch sweep at 256 KiB: leading slices of one device batch
+    d_sweep, n_sweep = device_rows(max(SWEEP_ROWS), PIECE)
+    sweep = {}
+    for r in SWEEP_ROWS:
+        ms = timed_and_checked(d_sweep[:r], n_sweep[:r], PIECE, f"sweep {r} rows")
+        sweep[r] = (ms, *rows_bound(n_sweep[:r], 5, sha1_cuda.OPS_PER_BLOCK))
+    del d_sweep
 
     ms_leaf = time_kernel(sha256_rows, d_leaf, n_leaf)
     bound_leaf, by_leaf = rows_bound(n_leaf, 8, sha256_cuda.OPS_PER_BLOCK)
@@ -686,6 +735,8 @@ def main() -> dict:
     s, m = results["single"], results["multi"]
     log(f"time: sha1_cuda {BATCH} x 256 KiB ms={ms_256:.4f} bound_ms={bound_256:.4f} ({by_256}) {card}")
     log(f"time: sha1_cuda {rows} x 1 MiB ms={ms_1m:.4f} bound_ms={bound_1m:.4f} ({by_1m}) {card}")
+    for r, (ms, bound, by) in sweep.items():
+        log(f"time: sha1_cuda sweep {r} x 256 KiB ms={ms:.4f} bound_ms={bound:.4f} ({by}) {card}")
     log(f"time: sha1_torch (plain) {BATCH} x 256 KiB ms={plain_ms:.1f} {card}")
     log(f"time: sha256_cuda {LEAF_LAUNCH} x 16 KiB ms={ms_leaf:.4f} bound_ms={bound_leaf:.4f} ({by_leaf}) {card}")
     log(

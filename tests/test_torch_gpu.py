@@ -134,6 +134,49 @@ def test_verifier_on_card_matches_cpu(cuda):
     ]
 
 
+def kernel_u8_u32_plain(pieces, device, sentinels=()):
+    """The kernel on u8 and int32-viewed rows and the plain version, all
+    on the card, and hashlib's digests (the IV words for sentinel rows)."""
+    data, nb = on_card(pieces, device, sentinels)
+    got, got32 = sha1_pieces_cuda(data, nb), sha1_pieces_cuda(data.view(torch.int32), nb)
+    plain = sha1_pieces_torch(data, nb)
+    torch.cuda.synchronize()
+    iv = words_to_digests(np.asarray([IV], dtype=np.uint32))[0]
+    want = [iv if i in sentinels else hashlib.sha1(p).digest() for i, p in enumerate(pieces)]
+    return got, got32, plain, want
+
+
+@pytest.mark.parametrize("rows", [1, 31, 32, 33, 4097])
+def test_kernel_batches_around_the_32_piece_cta(cuda, rows):
+    # the kernel runs one CTA per 32 pieces: full, partial and lone CTAs
+    rng = np.random.default_rng(rows)
+    pieces = [rng.bytes(int(n)) for n in rng.integers(0, 2048, size=rows)]
+    sentinels = (rows // 2,) if rows > 2 else ()
+    got, got32, plain, want = kernel_u8_u32_plain(pieces, cuda, sentinels)
+    assert torch.equal(got, plain) and torch.equal(got32, plain)
+    assert digests(got) == want
+
+
+def test_kernel_one_cta_of_ragged_chains_with_sentinels(cuda):
+    # one 32-row CTA whose chains run 1 … 4097 blocks; the rings run to the
+    # longest while shorter lanes and the sentinels in the middle keep theirs
+    rng = np.random.default_rng(32)
+    lens = np.linspace(0, 256 * 1024 - 1, 32).astype(int)
+    pieces = [rng.bytes(int(n)) for n in lens]
+    got, got32, plain, want = kernel_u8_u32_plain(pieces, cuda, sentinels=(12, 13, 20))
+    assert torch.equal(got, plain) and torch.equal(got32, plain)
+    assert digests(got) == want
+
+
+def test_kernel_rows_of_a_mebibyte_and_one_block(cuda):
+    # 16,386 blocks per chain: thousands of trips around both rings
+    rng = np.random.default_rng(1 << 20)
+    pieces = [rng.bytes((1 << 20) + 64), rng.bytes(1 << 20), rng.bytes(5)]
+    got, got32, plain, want = kernel_u8_u32_plain(pieces, cuda)
+    assert torch.equal(got, plain) and torch.equal(got32, plain)
+    assert digests(got) == want
+
+
 def test_entry_on_card(cuda):
     forward, args = entry()
     assert args[0].is_cuda and forward(*args).all()

@@ -2,11 +2,15 @@
 
 Replaces ``torrent_tpu/ops/sha1_pallas.py::_sha1_kernel`` (its
 ``pallas_call`` at sha1_pallas.py:243), with the contract of
-``ops/sha1_torch.py``. The kernel is integer-ALU bound on an H100
-(``OPS_PER_BLOCK`` integer instructions per 64-byte block); at the verify
-plane's batch of 4096 pieces one thread per piece gives about one warp
-per SM, so round latency, not either peak, holds it back. The design
-notes are at the top of ``csrc/sha1.cu``.
+``ops/sha1_torch.py``. The work is integer arithmetic
+(``OPS_PER_BLOCK`` integer instructions per 64-byte block), but up to
+132 x 32 = 4,224 rows (the recheck's 4096, authoring's 256) there is at
+most one warp of pieces per SM, so a launch takes as long as one piece's
+serial chain of rounds; only beyond that does the card's integer rate
+bound it. The kernel is warp-specialised for that: per CTA of 32 pieces,
+one warp runs only the rounds, fed through a shared-memory ring by two
+warps that load the blocks (16-byte ``cp.async``) and compute the
+message schedule. The design notes are at the top of ``csrc/sha1.cu``.
 
 Build: CUDA C++ for ``sm_90a`` with a plain C interface, compiled by
 ``nvcc`` at first use into ``build/torrent_tpu_torch/`` and loaded with
@@ -68,8 +72,26 @@ def _load():
                 ctypes.c_int64,  # batch
                 ctypes.c_void_p,  # cudaStream_t
             ]
+            for fn in (lib.tt_sha1_smem_bytes, lib.tt_sha1_ctas_per_sm):
+                fn.restype = ctypes.c_int
+                fn.argtypes = []
             _lib = lib
     return _lib
+
+
+def smem_bytes() -> int:
+    """Dynamic shared memory of one CTA of the kernel, in bytes (ptxas'
+    report counts only static shared memory). Builds the kernel."""
+    return _load().tt_sha1_smem_bytes()
+
+
+def ctas_per_sm() -> int:
+    """CTAs of the kernel (32 pieces each) that one SM of the current GPU
+    holds at once. Builds the kernel; raises if CUDA cannot answer."""
+    n = _load().tt_sha1_ctas_per_sm()
+    if n < 0:
+        raise RuntimeError(f"sha1 kernel occupancy query failed: cudaError {-n}")
+    return n
 
 
 def sha1_pieces_cuda(data: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
@@ -99,7 +121,7 @@ def sha1_pieces_cuda(data: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
             data.data_ptr(), row_bytes, nblocks.data_ptr(), out.data_ptr(), batch, stream
         )
     if rc != 0:
-        raise RuntimeError(f"sha1 kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"sha1 kernel launch (or its shared-memory set-up) failed: cudaError {rc}")
     sha1_pieces_cuda.launches += 1
     return out
 
