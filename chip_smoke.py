@@ -21,7 +21,10 @@ Phases (any failure exits non-zero, and no phase hides an error):
    hashlib only: the plain version would take minutes over its 15,626
    blocks), ragged lengths 0 … 16 KiB with sentinel rows, u8 and
    int32-viewed input, one full 32768 x 16 KiB leaf launch, and a merkle
-   pair level against ``hashlib.sha256(left + right)``.
+   pair level against ``hashlib.sha256(left + right)``. The merkle kernel:
+   whole reductions of [B, L, 8] grids (one launch up to its 9-level cap,
+   two above it, up to one 2**17-leaf tree) against the plain version and
+   a hashlib pair-fold of every tree.
 4. The v1 main path at a real size, on a seeded payload written to a
    temporary directory: a single-file torrent of 8192 pieces of 256 KiB
    (the last one short, 2 GiB in all) and a multi-file torrent of 6
@@ -40,16 +43,20 @@ Phases (any failure exits non-zero, and no phase hides an error):
    SHA-1 kernel). ``verify_v2`` and ``verify_pieces`` on the
    ``v2_session_info`` must be all True; after one flipped byte both must
    flag exactly that piece, as hashlib's rechecks do. Every launch
-   counter is reset before this phase; the SHA-256 row and pair kernels
-   (and, through hybrid authoring, SHA-1) must have launched in it.
+   counter is reset before this phase; the SHA-256 row and merkle kernels
+   (and, through hybrid authoring, SHA-1) must have launched in it, the
+   merkle kernel at most 58 times (one launch a reduction up to its cap).
 6. Times, from CUDA events after warm-up (SHA-1 at 4096 x 256 KiB and
    4096 x 1 MiB, a batch sweep of SHA-1 at 1, 256, 4096 and 16384 rows
    x 256 KiB on rows filled on the card, spot-checked against hashlib,
    SHA-256 at the 32768-leaf authoring launch and the
    16384-leaf recheck launch, one 65536-pair merkle level, and each plain
-   version) and from the host clock (end-to-end rechecks, authoring and
-   the hashlib baselines of the 2 GiB file), each printed beside the
-   card's name and power limit.
+   version), the merkle reduction at the v2 paths' shapes with its chain
+   floor in cycles per level (``torrent_tpu_torch/tools/time_merkle.py``:
+   one synced call, back to back, and the device's own time), and from
+   the host clock (end-to-end rechecks, authoring and the hashlib
+   baselines of the 2 GiB file), each printed beside the card's name and
+   power limit.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. The page cache holds the payload when
@@ -114,6 +121,12 @@ LEAF = 16 * 1024  # BEP 52 leaf block
 LEAF_LAUNCH = 32768  # leaves per authoring launch (models/v2.py LEAF_BATCH)
 VERIFY_LEAVES = 256 * (V2_PIECE // LEAF)  # leaves per v2 recheck launch
 PAIRS = 65536  # one merkle level of the 2 GiB payload's leaf grid
+# merkle reductions held against hashlib, (trees, leaves per tree): partial,
+# full and ragged 512-node CTAs, the v2 recheck batch and authoring piece
+# grid, one and two launches
+MERKLE_SHAPES = ((1, 2), (5, 8), (3, 64), (256, 64), (2048, 64), (1000, 2), (1, 2048), (2, 4096), (1, 1 << 17))
+MERKLE_RECORD = (2048, 64)  # the kernels record's shape: build_v2's piece grid of the 2 GiB payload
+MERKLE_PATH_MAX = 58  # merkle launches the v2 phase may make (one a reduction up to the cap)
 
 
 class SmokeFailure(Exception):
@@ -145,14 +158,6 @@ def flip_byte(path: str, offset: int) -> None:
         b = f.read(1)
         f.seek(offset)
         f.write(bytes([b[0] ^ 0xFF]))
-
-
-def sm_clock() -> str:
-    """The card's SM clock now, as nvidia-smi reads it."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
 
 
 def sass_opcodes(lib) -> dict:
@@ -205,23 +210,22 @@ def main() -> dict:
     )
     from torrent_tpu_torch.ops.sha1_torch import sha1_pieces_torch, words_to_numpy
     from torrent_tpu_torch.ops.sha256_torch import IV as IV256
-    from torrent_tpu_torch.ops.sha256_torch import sha256_pairs_torch, sha256_pieces_torch
+    from torrent_tpu_torch.ops.sha256_torch import sha256_merkle_torch, sha256_pairs_torch, sha256_pieces_torch
     from torrent_tpu_torch.parallel.verify import verify_pieces
     from torrent_tpu_torch.session.v2 import v2_session_info
     from torrent_tpu_torch.storage.storage import FsStorage, Storage
     from torrent_tpu_torch.tools.make_torrent import make_torrent
+    from torrent_tpu_torch.tools.time_merkle import bound_ms, hashlib_roots, smi, time_shapes
 
     sha256_rows = sha256_cuda.sha256_pieces_cuda
     sha256_pairs = sha256_cuda.sha256_pairs_cuda
+    sha256_merkle = sha256_cuda.sha256_merkle_cuda
 
     # ---------------------------------------------------------------- 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0].strip()
+    name_and_limit = smi("name,power.limit")
     kind = torch.cuda.get_device_name(0)
-    card = f"[{smi}]"
-    log(smi)
+    card = f"[{name_and_limit}]"
+    log(name_and_limit)
     log(f"phase 1: device {kind}, count {torch.cuda.device_count()}, torch {torch.__version__}, cuda {torch.version.cuda}")
     dev = torch.device("cuda", 0)
 
@@ -279,7 +283,7 @@ def main() -> dict:
         return k_u8, k_u32, p
 
     rng = np.random.default_rng(SEED)
-    clock_phase3 = sm_clock()
+    clock_phase3 = smi("clocks.sm")
     total_mismatch = 0
     # NIST vectors
     k, k32, p = kernel_and_plain(sha1_cuda.sha1_pieces_cuda, sha1_pieces_torch, [m for m, _ in NIST])
@@ -377,9 +381,32 @@ def main() -> dict:
     del kids, want
     log(f"kernels: sha256_pairs_cuda launches={sha256_pairs.launches} mismatches={mis_pairs}")
     check(mis_pairs == 0 and err_pairs == 0, "pair kernel disagrees with its plain version")
+    # whole merkle reductions: random node words, roots against hashlib
+    mis_merkle = err_merkle = 0
+    for b, l in MERKLE_SHAPES:
+        levels = l.bit_length() - 1
+        grid = rng.integers(0, 2**32, size=(b, l, 8), dtype=np.uint32)
+        words = torch.from_numpy(grid.reshape(-1, 8).view(np.int32)).to(dev)
+        launches0 = sha256_merkle.launches
+        k = sha256_merkle(words, levels)
+        check(
+            sha256_merkle.launches - launches0 == len(sha256_cuda.merkle_passes(levels)),
+            f"merkle [{b}, {l}]: launches differ from the pass plan",
+        )
+        p, ms = plain_timed(sha256_merkle_torch, words, levels)
+        if (b, l) == MERKLE_RECORD:
+            plain_merkle_ms = ms
+        mis_merkle += mismatches(k, p)
+        err_merkle = max(err_merkle, abs_err(k, p))
+        want = hashlib_roots(grid)
+        check(digests(k) == want, f"merkle [{b}, {l}]: kernel disagrees with hashlib")
+        check(digests(p) == want, f"merkle [{b}, {l}]: plain version disagrees with hashlib")
+    log(f"kernels: sha256_merkle_cuda launches={sha256_merkle.launches} mismatches={mis_merkle}")
+    check(mis_merkle == 0 and err_merkle == 0, "merkle kernel disagrees with its plain version")
     log(
         f"phase 3: sha256 kernels == plain == hashlib on NIST (+ 1,000,000 x 'a' vs hashlib), "
-        f"ragged, sentinel, {LEAF_LAUNCH} x 16 KiB leaf and {PAIRS}-pair level batches"
+        f"ragged, sentinel, {LEAF_LAUNCH} x 16 KiB leaf and {PAIRS}-pair level batches, and merkle "
+        f"reductions of {', '.join(f'[{b}, {l}]' for b, l in MERKLE_SHAPES)} trees"
     )
 
     # ---------------------------------------------------------------- 4
@@ -462,8 +489,10 @@ def main() -> dict:
         t9 = time.perf_counter()
         plane.stage_pieces(pbuf, lengths, 64)
         t10 = time.perf_counter()
+        merkle0 = sha256_merkle.launches
         _, verify_dev_s = on_device(lambda: _merkle_reduce_fused(plane.launch_grid(256, 64), 6))
         return {
+            "verify_merkle_launches": sha256_merkle.launches - merkle0,
             "author_read_s": t1 - t0, "author_tobytes_s": t2 - t1, "author_alloc_s": t3 - t2,
             "author_stage_s": t4 - t3, "author_device_s": author_dev_s, "author_d2h_s": t6 - t5,
             "verify_read_s": t8 - t7, "verify_alloc_s": t9 - t8, "verify_stage_s": t10 - t9,
@@ -474,6 +503,7 @@ def main() -> dict:
         sha1_cuda.sha1_pieces_cuda.launches = 0
         sha256_rows.launches = 0
         sha256_pairs.launches = 0
+        sha256_merkle.launches = 0
 
     reset_counts()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -644,11 +674,16 @@ def main() -> dict:
             )
         v2_launches = {
             "sha256_cuda": sha256_rows.launches,
+            "sha256_merkle_cuda": sha256_merkle.launches,
             "sha256_pairs_cuda": sha256_pairs.launches,
             "sha1_cuda": sha1_cuda.sha1_pieces_cuda.launches,
         }
-        for name, n in v2_launches.items():
-            check(n > 0, f"the v2 main path launched {name} no time")
+        for name in ("sha256_cuda", "sha256_merkle_cuda", "sha1_cuda"):
+            check(v2_launches[name] > 0, f"the v2 main path launched {name} no time")
+        check(
+            v2_launches["sha256_merkle_cuda"] <= MERKLE_PATH_MAX,
+            f"the v2 main path made {v2_launches['sha256_merkle_cuda']} merkle launches, more than {MERKLE_PATH_MAX}",
+        )
         log(f"phase 5: v2 main path launches {v2_launches}")
         # measured after the counts are read: its launches are not the path's
         stages_v2 = v2_stages(single, single_v2_info)
@@ -656,7 +691,7 @@ def main() -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # ---------------------------------------------------------------- 6
-    clock_phase6 = sm_clock()
+    clock_phase6 = smi("clocks.sm")
 
     def time_kernel(fn, *args, reps=10) -> float:
         for _ in range(2):
@@ -670,16 +705,11 @@ def main() -> dict:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / reps
 
-    def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
-        t_bytes = nbytes / sha1_cuda.HBM_BYTES_PER_S * 1e3
-        t_ops = ops / sha1_cuda.INT32_OPS_PER_S * 1e3
-        return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
     def rows_bound(nb: torch.Tensor, words_out: int, ops_per_block: int) -> tuple[float, str]:
         blocks = int(nb.to(torch.int64).sum())
         rows = nb.shape[0]
         # blocks read, counts read, words written
-        return bound_ms(blocks * 64 + rows * 4 + rows * 4 * words_out, blocks * ops_per_block)
+        return bound_ms(sha1_cuda, blocks * 64 + rows * 4 + rows * 4 * words_out, blocks * ops_per_block)
 
     def device_rows(rows: int, piece: int):
         """``rows`` seeded random pieces of ``piece`` bytes, made and padded
@@ -729,8 +759,14 @@ def main() -> dict:
     ms_verify_leaf = time_kernel(sha256_rows, d_leaf[:VERIFY_LEAVES], n_leaf[:VERIFY_LEAVES])
     bound_verify_leaf, by_verify_leaf = rows_bound(n_leaf[:VERIFY_LEAVES], 8, sha256_cuda.OPS_PER_BLOCK)
     del d_leaf
-    ms_pairs = time_kernel(sha256_pairs, pair_words)
-    bound_pairs, by_pairs = bound_ms(PAIRS * (64 + 32), PAIRS * sha256_cuda.OPS_PER_PAIR)
+    # the merkle reduction at the v2 paths' shapes and one pair level; the
+    # JSON records take the device's own time (the host's launch work is
+    # on the time: lines) at the authoring piece grid, whose plain version
+    # phase 3 timed, and at the pair level
+    merkle_times = {r["name"]: r for r in time_shapes()}
+    pair_rec, grid_rec = merkle_times["pair level"], merkle_times["authoring piece grid"]
+    b, l, _ = grid_rec["shape"]
+    check((b, l) == MERKLE_RECORD, f"time_merkle's authoring piece grid is [{b}, {l}, 8], not {MERKLE_RECORD}")
 
     s, m = results["single"], results["multi"]
     log(f"time: sha1_cuda {BATCH} x 256 KiB ms={ms_256:.4f} bound_ms={bound_256:.4f} ({by_256}) {card}")
@@ -748,8 +784,8 @@ def main() -> dict:
         f"ms={first_leaf_ms:.4f}; SM clock before phase 3 {clock_phase3}, before phase 6 {clock_phase6} {card}"
     )
     log(f"time: sha256_torch (plain) {LEAF_LAUNCH} x 16 KiB ms={plain256_ms:.1f} {card}")
-    log(f"time: sha256_pairs_cuda {PAIRS} pairs ms={ms_pairs:.4f} bound_ms={bound_pairs:.4f} ({by_pairs}) {card}")
     log(f"time: sha256_pairs_torch (plain) {PAIRS} pairs ms={plain_pairs_ms:.1f} {card}")
+    log(f"time: sha256_merkle_torch (plain) [{b}, {l}, 8] ms={plain_merkle_ms:.1f} {card}")
     for label, r in (("single 2 GiB", s), ("multi 184 MB", m)):
         log(
             f"time: recheck {label} gpu pieces/s={r['pieces'] / r['gpu_s']:.1f} "
@@ -775,8 +811,8 @@ def main() -> dict:
         f"stage+pad s={stages_v2['author_stage_s']:.4f} h2d+kernel s={stages_v2['author_device_s']:.4f} "
         f"words d2h s={stages_v2['author_d2h_s']:.4f}; one recheck batch of 256 x 1 MiB: "
         f"read_batch s={stages_v2['verify_read_s']:.4f} staging alloc s={stages_v2['verify_alloc_s']:.4f} "
-        f"stage_pieces s={stages_v2['verify_stage_s']:.4f} h2d+leaf kernel+6 pair levels "
-        f"s={stages_v2['verify_device_s']:.4f} {card}"
+        f"stage_pieces s={stages_v2['verify_stage_s']:.4f} h2d+leaf kernel+"
+        f"{stages_v2['verify_merkle_launches']} merkle launch(es) s={stages_v2['verify_device_s']:.4f} {card}"
     )
     log("time: library_ms none (no single PyTorch call computes SHA-1 or SHA-256)")
     batches = -(-s["pieces"] // BATCH)
@@ -802,7 +838,11 @@ def main() -> dict:
             record("sha256_cuda", "torrent_tpu_torch/csrc/sha256.cu", "torrent_tpu/ops/sha256_pallas.py:200",
                    v2_launches["sha256_cuda"], err256, ms_leaf, plain256_ms, bound_leaf, by_leaf),
             record("sha256_pairs_cuda", "torrent_tpu_torch/csrc/sha256.cu", "torrent_tpu/models/merkle.py:30",
-                   v2_launches["sha256_pairs_cuda"], err_pairs, ms_pairs, plain_pairs_ms, bound_pairs, by_pairs),
+                   v2_launches["sha256_pairs_cuda"], err_pairs, pair_rec["device_ms"], plain_pairs_ms,
+                   pair_rec["bound_ms"], pair_rec["bound_by"]),
+            record("sha256_merkle_cuda", "torrent_tpu_torch/csrc/sha256.cu", "torrent_tpu/models/merkle.py:49",
+                   v2_launches["sha256_merkle_cuda"], err_merkle, grid_rec["device_ms"], plain_merkle_ms,
+                   grid_rec["bound_ms"], grid_rec["bound_by"]),
         ]
     }
     log(json.dumps(kernels))

@@ -26,12 +26,20 @@ from torrent_tpu_torch.models.verifier import GPUVerifier
 from torrent_tpu_torch.ops.padding import digests_to_words, pad_pieces, words_to_digests
 from torrent_tpu_torch.ops.sha1_cuda import make_sha1_fn, sha1_pieces_cuda
 from torrent_tpu_torch.ops.sha1_torch import IV, sha1_pieces_torch, words_to_numpy
-from torrent_tpu_torch.ops.sha256_cuda import make_sha256_fn, sha256_pairs_cuda, sha256_pieces_cuda
+from torrent_tpu_torch.ops.sha256_cuda import (
+    MERKLE_CAP,
+    make_sha256_fn,
+    merkle_passes,
+    sha256_merkle_cuda,
+    sha256_pairs_cuda,
+    sha256_pieces_cuda,
+)
 from torrent_tpu_torch.ops.sha256_torch import IV as IV256
-from torrent_tpu_torch.ops.sha256_torch import sha256_pairs_torch, sha256_pieces_torch
+from torrent_tpu_torch.ops.sha256_torch import sha256_merkle_torch, sha256_pairs_torch, sha256_pieces_torch
 from torrent_tpu_torch.parallel.verify import verify_pieces
 from torrent_tpu_torch.session.v2 import v2_session_info
 from torrent_tpu_torch.storage.storage import FsStorage, MemoryStorage, Storage
+from torrent_tpu_torch.tools.time_merkle import hashlib_roots
 
 pytestmark = pytest.mark.gpu
 
@@ -255,9 +263,57 @@ def test_sha256_wrappers_reject_what_the_kernels_do_not_take(cuda):
 def test_merkle_root_on_card_matches_cpu(cuda):
     rng = np.random.default_rng(7)
     grid = rng.integers(0, 2**32, size=(5, 16, 8), dtype=np.uint32)
-    before = sha256_pairs_cuda.launches
+    before = (sha256_merkle_cuda.launches, sha256_pairs_cuda.launches)
     assert (merkle_root(grid) == merkle_root(grid, device="cpu")).all()
-    assert sha256_pairs_cuda.launches == before + 4
+    # all four levels of all five trees in one launch of the merkle kernel
+    assert (sha256_merkle_cuda.launches, sha256_pairs_cuda.launches) == (before[0] + 1, before[1])
+
+
+def merkle_on_card(b, l, device, seed):
+    """A seeded ``[b, l, 8]`` grid as ``int32[b·l, 8]`` node words on the
+    card, and hashlib's pair-fold of each tree."""
+    grid = np.random.default_rng(seed).integers(0, 2**32, size=(b, l, 8), dtype=np.uint32)
+    return torch.from_numpy(grid.reshape(-1, 8).view(np.int32)).to(device), hashlib_roots(grid)
+
+
+@pytest.mark.parametrize(
+    "b,l",
+    # one CTA takes 512 nodes: partial, full and ragged last CTAs; trees of
+    # 1 ... 9 levels in one launch, and 11, 12 and 17 levels in two
+    [(1, 2), (5, 8), (3, 64), (256, 64), (1000, 2), (9, 64), (1, 2048), (2, 4096), (1, 1 << 17)],
+)
+def test_merkle_kernel_matches_plain_and_hashlib(cuda, b, l):
+    words, roots = merkle_on_card(b, l, cuda, seed=b * 31 + l)
+    levels = l.bit_length() - 1
+    got = sha256_merkle_cuda(words, levels)
+    plain = sha256_merkle_torch(words, levels)
+    torch.cuda.synchronize()
+    assert got.shape == (b, 8) and torch.equal(got, plain)
+    assert digests(got) == roots
+
+
+@pytest.mark.parametrize("levels", [1, 6, MERKLE_CAP, MERKLE_CAP + 1, 11, 17])
+def test_merkle_launches_follow_the_pass_plan(cuda, levels):
+    words, roots = merkle_on_card(2, 1 << levels, cuda, seed=levels)
+    before = sha256_merkle_cuda.launches
+    got = sha256_merkle_cuda(words, levels)
+    n = sha256_merkle_cuda.launches - before
+    assert n == len(merkle_passes(levels)) and (n == 1) == (levels <= MERKLE_CAP)
+    assert digests(got) == roots
+    assert sha256_merkle_cuda(words, 0) is words
+    assert sha256_merkle_cuda.launches - before == n  # no launch for 0 levels
+
+
+def test_merkle_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    wide = torch.zeros((8, 16), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        sha256_merkle_cuda(wide[:, :8], 3)  # not contiguous
+    with pytest.raises(ValueError):
+        sha256_merkle_cuda(wide.view(-1)[1:65].view(8, 8), 3)  # 4-byte aligned only
+    with pytest.raises(ValueError):
+        sha256_merkle_cuda(wide.view(16, 8)[:12], 3)  # 12 nodes are not trees of 8
+    with pytest.raises(ValueError):
+        sha256_merkle_cuda(wide.view(16, 8), -1)
 
 
 V2_PLEN = 4 * 16384
@@ -276,14 +332,14 @@ def v2_corpus(tmp_path):
 
 def test_build_v2_and_hybrid_on_card_match_cpu(cuda, tmp_path):
     files = v2_corpus(tmp_path)
-    before = (sha256_pieces_cuda.launches, sha256_pairs_cuda.launches, sha1_pieces_cuda.launches)
+    before = (sha256_pieces_cuda.launches, sha256_merkle_cuda.launches, sha1_pieces_cuda.launches)
     gpu = build_v2(files, "payload", V2_PLEN)
     cpu = build_v2(files, "payload", V2_PLEN, hasher="cpu")
     assert bencode(gpu.raw) == bencode(cpu.raw)
     blob_gpu, _ = build_hybrid(files, "payload", V2_PLEN)
     blob_cpu, _ = build_hybrid(files, "payload", V2_PLEN, hasher="cpu")
     assert blob_gpu == blob_cpu
-    after = (sha256_pieces_cuda.launches, sha256_pairs_cuda.launches, sha1_pieces_cuda.launches)
+    after = (sha256_pieces_cuda.launches, sha256_merkle_cuda.launches, sha1_pieces_cuda.launches)
     assert all(a > b for a, b in zip(after, before))
 
 

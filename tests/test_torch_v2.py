@@ -181,17 +181,20 @@ class TestMerkle:
 
     def test_reductions_launch_once_per_level_per_shape_group(self, monkeypatch):
         # 8 multi-piece files of one layer shape + 8 single-leaf files: the
-        # batched reduction is one pair level for the piece grid (2 leaves
-        # per piece) and two for the file layers (4 pieces), not a chain
-        # per file (single-leaf roots are the leaf itself)
+        # batched reduction is one merkle call per shape group, one pair
+        # level for the piece grid (2 leaves per piece) and two for the file
+        # layers (4 pieces), not a chain per file (single-leaf roots are the
+        # leaf itself)
         rng = np.random.default_rng(43)
         blobs = [rng.bytes(4 * PLEN) for _ in range(8)] + [rng.bytes(5000) for _ in range(8)]
         entries = [(len(b), v2._leaf_words_cpu(b)) for b in blobs]
         calls = []
-        real = merkle.sha256_pairs
-        monkeypatch.setattr(merkle, "sha256_pairs", lambda w: calls.append(w.shape) or real(w))
+        real = merkle.sha256_merkle_cuda
+        monkeypatch.setattr(
+            merkle, "sha256_merkle_cuda", lambda w, h: calls.append((tuple(w.shape), h)) or real(w, h)
+        )
         got = v2.roots_batched(entries, PLEN, device=CPU)
-        assert len(calls) == 3, calls
+        assert calls == [((8 * 4 * 2, 8), 1), ((8 * 4, 8), 2)], calls
         assert got == ref_v2.roots_batched(entries, PLEN, device=False)
 
     def test_roots_batched_matches_reference(self):

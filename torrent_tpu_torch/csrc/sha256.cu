@@ -1,23 +1,27 @@
-// Batched SHA-256 over host-padded rows, and merkle pair levels,
+// Batched SHA-256 over host-padded rows, and merkle reductions,
 // hand-written for Hopper (sm_90a).
 //
 // Replaces torrent_tpu/ops/sha256_pallas.py::_sha256_kernel (pallas_call at
 // sha256_pallas.py:275) and, as a second entry point of the same source,
-// the XLA pair level torrent_tpu/models/merkle.py::sha256_pairs that the
-// reference runs outside any Pallas kernel.
+// the XLA merkle reduction torrent_tpu/models/merkle.py::_merkle_reduce_fused
+// (every pair level of a tree in one dispatch) that the reference runs
+// outside any Pallas kernel.
 //
 // Rows (tt_sha256_launch). Same contract as the TPU kernel: rows already
 // padded on the host (ops/padding.py), one int32 block count per row,
 // eight big-endian state words per row out. A row with nblocks = 0 is a
 // sentinel: its chain never runs and it writes the IV.
 //
-// Pairs (tt_sha256_pairs_launch). One merkle level: each row is the 64-byte
+// Merkle (tt_sha256_merkle_launch). Each run of 2^levels consecutive 8-word
+// nodes reduces to its root by `levels` pair levels. A pair is the 64-byte
 // concatenation of two child digests as sixteen big-endian words (digests
 // never leave word form above the leaves, so there is no byteswap), and its
 // SHA-256 is the compression of that block followed by the constant padding
-// block 0x80000000, 0 x 14, 512. Output is [M, 8] words, so a level of a
-// [B, m, 8] grid viewed as [B*m/2, 16] reduces to [B, m/2, 8] in place of
-// the reference's jitted level, with no copy between levels.
+// block 0x80000000, 0 x 14, 512. The trees of a [B, L, 8] grid are
+// contiguous, so the grid viewed as [B*L, 8] reduces to [B, 8] in one launch
+// when log2(L) <= kMerkleCap; taller trees take ceil(levels / cap) launches
+// (ops/sha256_cuda.py merkle_passes). One merkle level, `levels` = 1, is the
+// pair level models/merkle.py::sha256_pairs.
 //
 // Translation. The TPU kernel tiles 8-32 x 128 rows per program and walks
 // the chain as an "arbitrary" grid axis with the state in a revisited VMEM
@@ -29,7 +33,7 @@
 // indices nvcc folds each read into the IADD3 that uses it). Rotates are
 // __funnelshift_r, ch and maj are the mux/factored forms nvcc turns into one
 // LOP3 each, and the host-order words are byteswapped with __byte_perm. In
-// the pair kernel the second block's schedule is a compile-time constant,
+// a merkle pair the second block's schedule is a compile-time constant,
 // which nvcc folds away.
 //
 // What bounds it on an H100. Per 64-byte block the chain needs about 1,400
@@ -49,6 +53,37 @@
 //     loads do not coalesce; 16-byte loads still use each sector in full.
 //     Shared-memory staging (cp.async / TMA) is left for a later change.
 // Row offsets are 64-bit.
+//
+// The merkle reduction is bound the same way: a pair is 2,288 integer
+// instructions (OPS_PER_PAIR) on 64 bytes in and 32 out. An SM sub-partition
+// has 16 INT32 lanes, so one warp issues an integer instruction every two
+// cycles at best: one pair level costs a warp at least 4,600 cycles whatever
+// else runs (tools/time_merkle.py measured about 4,900 a level, the slope
+// of the device time between one-tree launches of 1 and 6 levels, on an
+// NVIDIA H100 80GB HBM3 at 700 W: near that limit), and a tree's levels
+// are a dependent chain of such steps. Two things follow for the design:
+//   - a lane that has nothing to hash at a level saves no issue slot; only
+//     a warp with no live lane does. So each level is packed into the
+//     fewest warps: a CTA of kMerkleThreads threads takes 2 * kMerkleThreads
+//     consecutive nodes (whole trees, or a slice of one tall tree), thread t
+//     hashes pair t of the level, and the level's nodes go through a
+//     double-buffered shared-memory array (one __syncthreads a level) to the
+//     first half of the threads for the next level. Level k then issues
+//     ceil(kMerkleThreads / 2^(k-1) / 32) warps, 17 warp-levels for the 63
+//     pairs of each 64-leaf tree of a full CTA against 48 if a warp reduced
+//     its own 64 leaves with shuffles, where every warp runs all six levels
+//     with most lanes idle;
+//   - a CTA's first level runs its kMerkleThreads / 32 warps on one SM's four
+//     sub-partitions, so a taller CTA makes level 1 issue-bound on one SM: 8
+//     warps are two a sub-partition (about 9,200 cycles), 32 warps eight
+//     (about 37,000). The cap is 8 warps, 512 nodes, 9 levels a launch. A
+//     2 GiB file's 2048-piece layer (11 levels) is then two launches, 6 + 5
+//     levels, the first spread over 4 SMs, about 12 pair-steps of chain
+//     against 22 for one 1024-thread CTA.
+// Level 1 reads each thread's 64 bytes as four 16-byte __ldg loads: a warp
+// reads 2 KiB, contiguous. A ragged last CTA holds whole trees only (the
+// node count is a multiple of 2^levels), and every load and store is
+// guarded by node index.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -56,7 +91,9 @@
 namespace {
 
 constexpr int kRowThreads = 32;
-constexpr int kPairThreads = 128;
+constexpr int kMerkleThreads = 256;              // 8 warps a CTA
+constexpr int kMerkleSpan = 2 * kMerkleThreads;  // input nodes a CTA reduces
+constexpr int kMerkleCap = 9;                    // log2(kMerkleSpan): levels a launch
 
 __constant__ uint32_t kK[64] = {
     0x428A2F98u, 0x71374491u, 0xB5C0FBCFu, 0xE9B5DBA5u, 0x3956C25Bu, 0x59F111F1u,
@@ -169,29 +206,65 @@ sha256_rows_kernel(const uint8_t* __restrict__ data, int64_t row_bytes,
   for (int i = 0; i < 8; ++i) out[row * 8 + i] = st[i];
 }
 
-__global__ void __launch_bounds__(kPairThreads)
-sha256_pairs_kernel(const uint32_t* __restrict__ words, uint32_t* __restrict__ out,
-                    int64_t pairs) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kPairThreads + threadIdx.x;
-  if (row >= pairs) return;
-  const uint4* p = reinterpret_cast<const uint4*>(words + row * 16);
-  uint32_t w[16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint4 v = __ldg(p + i);
-    w[4 * i + 0] = v.x;
-    w[4 * i + 1] = v.y;
-    w[4 * i + 2] = v.z;
-    w[4 * i + 3] = v.w;
-  }
-  uint32_t st[8];
+// The parent of two child digests: SHA-256 of their 64-byte concatenation
+// w, i.e. the pair block, then the constant padding block of a 64-byte
+// message (0x80, zeros, bit length 512).
+__device__ __forceinline__ void hash_pair(uint32_t w[16], uint32_t st[8]) {
   init_state(st);
   compress(st, w);
-  // the 64-byte message's padding block: 0x80, zeros, bit length 512
   uint32_t pad[16] = {0x80000000u, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 512u};
   compress(st, pad);
+}
+
+__global__ void __launch_bounds__(kMerkleThreads)
+sha256_merkle_kernel(const uint32_t* __restrict__ words, uint32_t* __restrict__ out,
+                     int64_t nodes, int levels) {
+  // the nodes of the last level, as two uint4 each, in two buffers that
+  // alternate from level to level: 2 x 8 KiB
+  __shared__ uint4 level_nodes[2][kMerkleSpan];
+  const int t = threadIdx.x;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kMerkleSpan;
+  uint32_t st[8];
+  bool live = false;
+  for (int level = 1; level <= levels; ++level) {
+    uint4* buf = level_nodes[level & 1];
+    if (level > 1) {
+      // hand the last level's nodes to the first half of the threads
+      if (live) {
+        buf[2 * t] = make_uint4(st[0], st[1], st[2], st[3]);
+        buf[2 * t + 1] = make_uint4(st[4], st[5], st[6], st[7]);
+      }
+      __syncthreads();
+    }
+    // pair t of this level covers input nodes [first + t 2^level, + 2^level),
+    // all of them present or none (whole trees)
+    live = t < (kMerkleSpan >> level) && first + (static_cast<int64_t>(t) << level) < nodes;
+    if (live) {
+      uint4 v[4];
+      if (level == 1) {
+        const uint4* p = reinterpret_cast<const uint4*>(words + (first + 2 * t) * 8);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) out[row * 8 + i] = st[i];
+        for (int i = 0; i < 4; ++i) v[i] = __ldg(p + i);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[i] = buf[4 * t + i];
+      }
+      uint32_t w[16];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        w[4 * i + 0] = v[i].x;
+        w[4 * i + 1] = v[i].y;
+        w[4 * i + 2] = v[i].z;
+        w[4 * i + 3] = v[i].w;
+      }
+      hash_pair(w, st);
+    }
+  }
+  if (live) {
+    uint4* o = reinterpret_cast<uint4*>(out + ((first >> levels) + t) * 8);
+    o[0] = make_uint4(st[0], st[1], st[2], st[3]);
+    o[1] = make_uint4(st[4], st[5], st[6], st[7]);
+  }
 }
 
 }  // namespace
@@ -220,21 +293,30 @@ int tt_sha256_launch(const void* data, int64_t row_bytes, const void* nblocks,
   return static_cast<int>(cudaGetLastError());
 }
 
-// words:    uint32[pairs, 16] big-endian child-pair words, 16-byte aligned
-// out:      uint32[pairs, 8], big-endian parent words
+// words:    uint32[nodes, 8] big-endian node words, 16-byte aligned
+// out:      uint32[nodes >> levels, 8], 16-byte aligned: each run of
+//           2^levels consecutive nodes reduced to its merkle root
+// nodes:    a multiple of 2^levels
+// levels:   1 ... tt_sha256_merkle_cap()
 // stream:   cudaStream_t to launch on
 // Returns cudaGetLastError() after the launch (0 = launched).
-int tt_sha256_pairs_launch(const void* words, void* out, int64_t pairs, void* stream) {
-  if (pairs <= 0) return 0;
-  if (reinterpret_cast<uintptr_t>(words) % 16 != 0) {
+int tt_sha256_merkle_launch(const void* words, void* out, int64_t nodes, int levels,
+                            void* stream) {
+  if (levels < 1 || levels > kMerkleCap || nodes < 0 || nodes % (int64_t{1} << levels) != 0 ||
+      reinterpret_cast<uintptr_t>(words) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t grid = (pairs + kPairThreads - 1) / kPairThreads;
+  if (nodes == 0) return 0;
+  const int64_t grid = (nodes + kMerkleSpan - 1) / kMerkleSpan;
   if (grid > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidConfiguration);
-  sha256_pairs_kernel<<<static_cast<unsigned>(grid), kPairThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), static_cast<uint32_t*>(out), pairs);
+  sha256_merkle_kernel<<<static_cast<unsigned>(grid), kMerkleThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(words), static_cast<uint32_t*>(out), nodes, levels);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The most levels one tt_sha256_merkle_launch reduces.
+int tt_sha256_merkle_cap(void) { return kMerkleCap; }
 
 }  // extern "C"

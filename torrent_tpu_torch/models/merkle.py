@@ -10,13 +10,15 @@ layers").
 Digests never leave word form: leaves come out of the SHA-256 plane as
 ``uint32[N, 8]`` big-endian words, and each merkle level is one batched
 compression of the 16-word pair concatenation plus a constant padding
-block, ``sha256_pairs: int32[M, 16] → int32[M, 8]``. On a GPU that is the
-pair kernel of ``csrc/sha256.cu``; on the CPU its plain version. A
-``[B, m, 8]`` level viewed as ``[B·m/2, 16]`` is contiguous, so a whole
-reduction (:func:`_merkle_reduce_fused`) uploads its grid once, runs
-log2(L) pair launches on the device with no copy between levels, and
-brings back only the roots. The reference keys this route on
-``jax.default_backend()``; here the route is the tensor's device.
+block, ``sha256_pairs: int32[M, 16] → int32[M, 8]``. The trees of a
+``[B, L, 8]`` grid are contiguous, so a whole reduction
+(:func:`_merkle_reduce_fused`) uploads its grid once and reduces every
+level of every tree in one launch of the merkle kernel of
+``csrc/sha256.cu`` (two for trees taller than its 9-level cap), as the
+reference jits every level into one dispatch, and brings back only the
+roots. On the CPU the same call runs the plain version, one level at a
+time. The reference keys this route on ``jax.default_backend()``; here
+the route is the tensor's device.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from torrent_tpu_torch.compat import to_device
 from torrent_tpu_torch.ops.padding import digests_to_words
 from torrent_tpu_torch.ops.padding import words_to_digests as words32_to_digests
 from torrent_tpu_torch.ops.sha1_torch import words_to_numpy
-from torrent_tpu_torch.ops.sha256_cuda import sha256_pairs_cuda
+from torrent_tpu_torch.ops.sha256_cuda import sha256_merkle_cuda, sha256_pairs_cuda
 from torrent_tpu_torch.utils.device import resolve_device
 
 __all__ = [
@@ -61,12 +63,12 @@ def sha256_pairs(words: torch.Tensor) -> torch.Tensor:
 
 def _merkle_reduce_fused(words: torch.Tensor, levels: int) -> torch.Tensor:
     """``int32[B, 2**levels, 8]`` → roots ``int32[B, 8]``: every pair level
-    on the tensor's device, each level read in place as ``[B·m/2, 16]``."""
-    words = words.contiguous()
-    for _ in range(levels):
-        b, m, _ = words.shape
-        words = sha256_pairs(words.view(b * (m // 2), 16)).view(b, m // 2, 8)
-    return words[:, 0, :]
+    of every tree on the tensor's device, in one merkle launch up to the
+    kernel's height cap."""
+    b, m, _ = words.shape
+    if m != 1 << levels:
+        raise ValueError(f"{m} leaves per tree is not 2**{levels}")
+    return sha256_merkle_cuda(words.contiguous().view(b * m, 8), levels).view(b, 8)
 
 
 def merkle_level(words: np.ndarray, device=None) -> np.ndarray:
@@ -87,7 +89,8 @@ def merkle_root(words: np.ndarray, device=None) -> np.ndarray:
     """``u32[..., L, 8]`` (L a power of two) → root ``u32[..., 8]``.
 
     The grid goes to ``device`` once (None means the GPU), all log2(L)
-    levels reduce there, and only the roots come back.
+    levels reduce there in one merkle launch up to the kernel's height
+    cap, and only the roots come back.
     """
     *lead, l, _ = words.shape
     if l & (l - 1):
@@ -131,7 +134,7 @@ def piece_roots_from_leaves(
     """Leaf words ``u32[n_leaves, 8]`` → per-piece roots ``u32[n_pieces, 8]``.
 
     The final piece's missing leaves are zero-hash-padded (BEP 52). All
-    pieces reduce together: one launch per tree level.
+    pieces reduce together, in one merkle launch.
     """
     if leaves_per_piece & (leaves_per_piece - 1):
         raise ValueError("leaves_per_piece must be a power of two")

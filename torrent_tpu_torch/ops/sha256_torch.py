@@ -14,6 +14,9 @@ holding the uint32 bit patterns (``sha1_torch.words_to_numpy`` gives
 reference's ``models/merkle.py::sha256_pairs``: ``int32[M, 16]``
 big-endian child-pair words → ``int32[M, 8]``, the compression of the
 pair block followed by the constant padding block of a 64-byte message.
+:func:`sha256_merkle_torch` is a whole reduction, the reference's
+``_merkle_reduce_fused`` on the flattened grid: ``int32[N, 8]`` node words
+→ ``int32[N / 2**levels, 8]`` roots, one pair level at a time.
 
 The arithmetic runs in int64 masked to 32 bits, as in ``sha1_torch``.
 A rotate takes the word doubled into 64 bits (``x | x << 32``) and
@@ -140,3 +143,26 @@ def sha256_pairs_torch(words: torch.Tensor) -> torch.Tensor:
     state = _compress(_iv(words.shape[0], words.device), _expand(w.unbind(1)))
     state = _compress(state, _PAD_WK)
     return _to_int32_bits(torch.stack(state, dim=1))
+
+
+def check_merkle(words: torch.Tensor, levels: int) -> None:
+    """Validate a merkle reduction against its contract: ``int32[N, 8]``
+    node words, an int ``levels >= 0``, and ``N`` divisible by
+    ``2**levels`` (whole trees only)."""
+    if words.dim() != 2 or words.shape[1] != 8:
+        raise ValueError(f"merkle words must be [N, 8], got shape {tuple(words.shape)}")
+    if words.dtype != torch.int32:
+        raise TypeError(f"merkle words must be int32-viewed uint32, got {words.dtype}")
+    if isinstance(levels, bool) or not isinstance(levels, int) or levels < 0:
+        raise ValueError(f"levels must be an int >= 0, got {levels!r}")
+    if words.shape[0] % (1 << levels):
+        raise ValueError(f"{words.shape[0]} nodes are not whole trees of 2**{levels}")
+
+
+def sha256_merkle_torch(words: torch.Tensor, levels: int) -> torch.Tensor:
+    """Merkle roots: ``int32[N, 8]`` → ``int32[N / 2**levels, 8]``, each run
+    of ``2**levels`` consecutive nodes folded by ``levels`` pair levels."""
+    check_merkle(words, levels)
+    for _ in range(levels):
+        words = sha256_pairs_torch(words.reshape(-1, 16))
+    return words
