@@ -57,8 +57,42 @@ Phases (any failure exits non-zero, and no phase hides an error):
    the host clock (end-to-end rechecks, authoring and the hashlib
    baselines of the 2 GiB file), each printed beside the card's name and
    power limit.
+7. The hash-plane scheduler (``torrent_tpu_torch/sched``) on the card,
+   BASELINE config 5 (1000 torrents of ~1 GiB) cut in count only: a
+   library of 2 single-file torrents of 1 GiB at 256 KiB pieces (8192
+   pieces, 2 GiB), written from the seed and authored with
+   ``make_torrent(hasher="gpu")`` (equal to hashlib's). One started ``HashPlaneScheduler(hasher="gpu")`` serves
+   three tenants at once: ``verify_library_sched`` of the library as
+   ``bulk`` (weight 0.25), ``verify_pieces_sched`` of phase 4's 184 MB
+   multi-file torrent as ``cli``, and the first 512 MiB of phase 4's
+   2 GiB file as 32768 leaves of 16 KiB through ``submit(...,
+   algo="sha256")`` as ``stream`` (the bridge's v2 stream route shape);
+   once with the default ``SchedulerConfig`` and once at batch_target
+   4096 with a staging budget that affords 4096 rows of 256 KiB. Every
+   bitfield and digest must equal hashlib's; the SHA-1 and SHA-256
+   launch counters (reset just before each run) must have grown; there
+   must be no CPU-fallback launch and no launch failure, every lane's
+   breaker closed, every ingest pool drained after ``close()``, and the
+   ledger's h2d, launch and digest stages carrying bytes and seconds.
+   One flipped byte in library torrent 1 must flag exactly that piece
+   (flipped back after), and a poisoned-prefix ``FaultPlan`` must fail
+   exactly the poisoned ticket while the others get their digests from
+   the CUDA plane. Printed beside the card's name and power limit: the
+   library sweep's wall time through the scheduler and through hashlib,
+   launches, mean fill, flush reasons, staged and copied launches, the
+   ledger's stages with the attributor's bottleneck and the sum of its
+   h2d + launch spans over the wall (host clock: spans of concurrent
+   threads overlap and hold GIL waits, so it is no share of the card),
+   and the staging slots' first-use pinned allocation time. A third run
+   at the default config, under a ``torch.profiler`` capture
+   (``TORRENT_TPU_PROFILE``, ``obs/profiler.py``), gives the card's busy
+   time: the union of the trace's kernel and copy intervals, printed as
+   a share of the unprofiled default run's wall (the same work without
+   the capture's host cost), of the first to last device event, and of
+   the profiled run's own wall.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (its ``launches``
+are phases 4 and 5's; phase 7 prints its own); the last line is
 ``{"ok": true, "device": {...}}``. The page cache holds the payload when
 it is rechecked (it was just written), so the end-to-end rates measure
 reads from memory, padding, copies and the kernels, not a disk.
@@ -127,6 +161,12 @@ PAIRS = 65536  # one merkle level of the 2 GiB payload's leaf grid
 MERKLE_SHAPES = ((1, 2), (5, 8), (3, 64), (256, 64), (2048, 64), (1000, 2), (1, 2048), (2, 4096), (1, 1 << 17))
 MERKLE_RECORD = (2048, 64)  # the kernels record's shape: build_v2's piece grid of the 2 GiB payload
 MERKLE_PATH_MAX = 58  # merkle launches the v2 phase may make (one a reduction up to the cap)
+# phase 7's library: BASELINE config 5 (1000 torrents x ~1 GiB) cut in count
+# only, to 2 single-file torrents of 1 GiB at 256 KiB pieces (2 GiB)
+LIB_TORRENTS = 2
+LIB_TORRENT_BYTES = 1 << 30
+LIB_VICTIM = 1  # the library torrent whose one flipped byte must be flagged
+STREAM_LEAVES = 32768  # the stream tenant's 16 KiB leaves: the first 512 MiB
 
 
 class SmokeFailure(Exception):
@@ -181,6 +221,237 @@ def sass_opcodes(lib) -> dict:
         if name is not None and m:
             ops[name][m.group(1)] += 1
     return ops
+
+
+def sched_phase(tmp: str, single: str, multi_root: str, multi_info, rng, card: str) -> dict:
+    """Phase 7: the hash-plane scheduler on the card (see the module
+    docstring). Returns its launches per kernel from the clean runs."""
+    import asyncio
+
+    import torch
+
+    from torrent_tpu_torch.codec.metainfo import parse_metainfo
+    from torrent_tpu_torch.obs.attrib import attribute
+    from torrent_tpu_torch.obs import profiler
+    from torrent_tpu_torch.obs.ledger import pipeline_ledger
+    from torrent_tpu_torch.ops import sha1_cuda, sha256_cuda
+    from torrent_tpu_torch.ops.padding import padded_len_for
+    from torrent_tpu_torch.parallel.bulk import verify_library, verify_library_sched
+    from torrent_tpu_torch.parallel.verify import verify_pieces_sched
+    from torrent_tpu_torch.sched import (
+        FaultPlan,
+        HashPlaneScheduler,
+        SchedLaunchError,
+        SchedulerConfig,
+    )
+    from torrent_tpu_torch.storage.storage import FsStorage, Storage
+    from torrent_tpu_torch.tools.make_torrent import make_torrent
+
+    sha1_k, sha256_k = sha1_cuda.sha1_pieces_cuda, sha256_cuda.sha256_pieces_cuda
+    lib_root = os.path.join(tmp, "library")
+    paths = [os.path.join(lib_root, f"t{i:02d}.bin") for i in range(LIB_TORRENTS)]
+    for p in paths:
+        write_random(p, LIB_TORRENT_BYTES, rng)
+    t = time.perf_counter()
+    infos = []
+    for p in paths:
+        gpu_meta = parse_metainfo(make_torrent(p, "http://localhost/announce", piece_length=PIECE, hasher="gpu"))
+        cpu_meta = parse_metainfo(make_torrent(p, "http://localhost/announce", piece_length=PIECE, hasher="cpu"))
+        check(gpu_meta.info.pieces == cpu_meta.info.pieces, f"library {p}: gpu authoring differs from hashlib")
+        infos.append(gpu_meta.info)
+    log(
+        f"phase 7: library of {LIB_TORRENTS} x {LIB_TORRENT_BYTES >> 20} MiB torrents "
+        f"({sum(i.num_pieces for i in infos)} pieces of 256 KiB) authored gpu == hashlib "
+        f"in {time.perf_counter() - t:.2f} s"
+    )
+
+    def items():  # fresh FsStorages, as a new process would open them
+        return [(Storage(FsStorage(lib_root), i), i) for i in infos]
+
+    t = time.perf_counter()
+    cpu_lib = verify_library(items(), hasher="cpu")
+    hashlib_lib_s = time.perf_counter() - t
+    check(all(bf.all() for bf in cpu_lib.bitfields), "library: hashlib sweep not all True")
+    with open(single, "rb") as f:
+        stream_blob = f.read(STREAM_LEAVES * LEAF)
+    leaves = [stream_blob[i : i + LEAF] for i in range(0, len(stream_blob), LEAF)]
+    want_leaves = [hashlib.sha256(x).digest() for x in leaves]
+    del stream_blob
+
+    async def stream(sched):
+        chunk = sched.chunk_for(LEAF, "sha256")
+        parts = await asyncio.gather(*(
+            sched.submit("stream", leaves[s : s + chunk], algo="sha256", piece_length=LEAF, wait=True)
+            for s in range(0, len(leaves), chunk)
+        ))
+        return [d for part in parts for d in part]
+
+    def assert_clean(sched, label):
+        snap = sched.metrics_snapshot()
+        check(snap["cpu_fallback_launches"] == 0, f"{label}: {snap['cpu_fallback_launches']} cpu fallback launches")
+        check(snap["launch_failures"] == 0, f"{label}: {snap['launch_failures']} launch failures")
+        states = {k: b["state"] for k, b in snap["breakers"].items()}
+        check(all(s == "closed" for s in states.values()), f"{label}: breakers {states}")
+        check(snap["staging"]["outstanding"] == 0, f"{label}: {snap['staging']['outstanding']} ingest slabs outstanding")
+        reuse = sched.staging_reuse()
+        check(reuse["outstanding"] == 0 and reuse["early_checkins"] == 0, f"{label}: staging reuse {reuse}")
+        return snap
+
+    walls = {}  # each run's wall, by label
+
+    async def traffic(cfg: SchedulerConfig, label: str, trace_dir: str | None = None) -> tuple[int, int]:
+        """One run of the three tenants; under a profiler capture into
+        ``trace_dir`` when given."""
+        if trace_dir is not None:
+            os.environ["TORRENT_TPU_PROFILE"] = trace_dir
+            os.environ["TORRENT_TPU_PROFILE_BATCHES"] = str(1 << 30)  # the whole run
+        sched = await HashPlaneScheduler(cfg, hasher="gpu").start()
+        sched.register_tenant("bulk", weight=0.25)
+        led = pipeline_ledger()
+        prev = led.snapshot()
+        # the main path: the counts are 0 just before it and read just after
+        sha1_k.launches = sha256_k.launches = 0
+        t0 = time.perf_counter()
+        try:
+            lib, bf_cli, got_leaves = await asyncio.gather(
+                verify_library_sched(items(), sched, tenant="bulk"),
+                verify_pieces_sched(Storage(FsStorage(os.path.dirname(multi_root)), multi_info), multi_info, sched, tenant="cli"),
+                stream(sched),
+            )
+            wall = walls[label] = time.perf_counter() - t0
+            launches = (sha1_k.launches, sha256_k.launches)
+            rep = attribute(led.snapshot(), prev=prev)
+            trace = None
+            if trace_dir is not None:
+                torch.cuda.synchronize()
+                trace = profiler.flush_trace(trace_dir)
+            if label == "default":
+                # one flipped byte in a library torrent flags exactly that piece
+                victim, off, vinfo = paths[LIB_VICTIM], 77 * PIECE + 4321, infos[LIB_VICTIM]
+                flip_byte(victim, off)
+                try:
+                    bfv = await verify_pieces_sched(Storage(FsStorage(lib_root), vinfo), vinfo, sched, tenant="cli")
+                finally:
+                    flip_byte(victim, off)
+                flagged = list(np.nonzero(~bfv)[0])
+                check(flagged == [77], f"library torrent {LIB_VICTIM}: flagged {flagged}")
+        finally:
+            if trace_dir is not None:
+                del os.environ["TORRENT_TPU_PROFILE"], os.environ["TORRENT_TPU_PROFILE_BATCHES"]
+            await sched.close()
+        check(all(bf.all() for bf in lib.bitfields), f"{label}: library sweep not all True")
+        check(all((a == b).all() for a, b in zip(lib.bitfields, cpu_lib.bitfields)), f"{label}: library differs from hashlib")
+        check(bf_cli.all(), f"{label}: the cli recheck of the 184 MB torrent not all True")
+        check(got_leaves == want_leaves, f"{label}: stream leaf digests differ from hashlib")
+        check(launches[0] > 0 and launches[1] > 0, f"{label}: kernels launched {launches} times")
+        snap = assert_clean(sched, label)
+        for stage in ("h2d", "launch", "digest"):
+            st = rep["stages"].get(stage, {})
+            check(st.get("bytes", 0) > 0 and st.get("busy_s", 0) > 0, f"{label}: ledger {stage} {st}")
+        copied = rep["stages"].get("stage", {}).get("ops", 0)
+        spans = rep["stages"]["h2d"]["busy_s"] + rep["stages"]["launch"]["busy_s"]
+        reuse = sched.staging_reuse()
+        bn = rep["bottleneck"] or {}
+        log(
+            f"phase 7: {label}: library {lib.n_pieces} pieces + cli {multi_info.num_pieces} pieces "
+            f"+ stream {len(leaves)} leaves all equal hashlib; sha1_cuda launches={launches[0]} "
+            f"sha256_cuda launches={launches[1]}; no cpu fallback, no launch failure, breakers closed, "
+            f"ingest pools drained"
+        )
+        log(
+            f"time: sched {label} (batch_target={cfg.batch_target}, staging_budget={cfg.staging_budget}) "
+            f"wall s={wall:.3f}; library sweep s={lib.seconds:.3f} pieces/s={lib.n_pieces / lib.seconds:.1f} "
+            f"GiB/s={lib.bytes_hashed / lib.seconds / 2**30:.3f}; hashlib library sweep s={hashlib_lib_s:.3f} "
+            f"pieces/s={cpu_lib.n_pieces / hashlib_lib_s:.1f} {card}"
+        )
+        log(
+            f"time: sched {label} launches={snap['launches']} mean_fill={snap['mean_fill']:.4f} "
+            f"flush_reasons={snap['flush_reasons']} staged={snap['launches'] - copied} copied={copied} "
+            f"lanes={ {k: (v['target'], v['launches'], round(v['mean_fill'], 4)) for k, v in snap['lane_stats'].items()} } {card}"
+        )
+        log(
+            f"time: sched {label} ledger "
+            + " ".join(
+                f"{name}=({st['busy_s']:.4f} s, {st['bytes']} B, {st['ops']} ops)"
+                for name, st in rep["stages"].items()
+            )
+            + f" wall_s={rep['wall_s']:.4f} overlap_share={rep['overlap']['share']:.4f} "
+            f"bottleneck={bn.get('stage')} (utilization {bn.get('utilization')}); "
+            f"h2d + launch span seconds over wall = {spans / wall:.4f} (host clock, "
+            f"threads overlap: not the card's share) {card}"
+        )
+        log(
+            f"time: sched {label} staging slots allocated={reuse['slots_allocated']} in "
+            f"s={reuse['alloc_s']:.4f} (pinned), copy checks={reuse['copy_checks']} "
+            f"early check-ins={reuse['early_checkins']} {card}"
+        )
+        if trace is not None:
+            busy = profiler.device_busy(trace)
+            if busy["kernels"] == 0:
+                log(f"time: sched {label} card busy share: not measured (the trace holds no kernel events) {card}")
+            else:
+                # the capture slows the host (its start-up and host-side
+                # events), not the card's work: the same work unprofiled
+                # took the default run's wall
+                ref = walls["default"]
+                log(
+                    f"time: sched {label} card busy from the torch.profiler trace: kernels s={busy['kernel_s']:.4f} "
+                    f"copies s={busy['copy_s']:.4f} either s={busy['busy_s']:.4f}; share of the default run's "
+                    f"wall s={ref:.3f} = {busy['busy_s'] / ref:.4f} (kernels {busy['kernel_s'] / ref:.4f}, copies "
+                    f"{busy['copy_s'] / ref:.4f}); of this run's first to last device event s={busy['span_s']:.4f} "
+                    f"= {busy['busy_s'] / busy['span_s']:.4f}; of this profiled run's wall s={wall:.3f} = "
+                    f"{busy['busy_s'] / wall:.4f}; {busy['kernels']} kernel events {busy['kernel_names']}, "
+                    f"{busy['copies']} copy events; kernel launches counted {launches} {card}"
+                )
+        return launches
+
+    clean = {}
+    clean["default"] = asyncio.run(traffic(SchedulerConfig(), "default"))
+    batch_cfg = SchedulerConfig(
+        batch_target=BATCH,
+        staging_budget=BATCH * padded_len_for(PIECE),
+        # room for two launches of 4096 x 256 KiB in flight and one queued
+        max_queue_bytes=3 * BATCH * padded_len_for(PIECE),
+        max_tenant_bytes=3 * BATCH * padded_len_for(PIECE),
+    )
+    clean["batch4096"] = asyncio.run(traffic(batch_cfg, "batch4096"))
+    asyncio.run(traffic(SchedulerConfig(), "profiled", trace_dir=os.path.join(tmp, "profile")))
+
+    # a poisoned ticket fails alone, on the CUDA plane
+    pieces = [rng.bytes(16384) for _ in range(64)]
+    poison = 37
+    plan = FaultPlan(payload_prefix=pieces[poison][:16])
+
+    async def poisoned():
+        sched = await HashPlaneScheduler(
+            SchedulerConfig(batch_target=64, flush_deadline=0.05, plane_factory=plan.plane_factory(hasher="gpu")),
+            hasher="gpu",
+        ).start()
+        before = sha1_k.launches
+        try:
+            got = await asyncio.gather(
+                *(sched.submit(f"t{i % 4}", [p], piece_length=16384) for i, p in enumerate(pieces)),
+                return_exceptions=True,
+            )
+        finally:
+            await sched.close()
+        return got, sha1_k.launches - before, sched.metrics_snapshot()
+
+    got, k_launches, snap = asyncio.run(poisoned())
+    for i, (p, g) in enumerate(zip(pieces, got)):
+        if i == poison:
+            check(isinstance(g, SchedLaunchError) and g.kind == "deterministic", f"poisoned ticket got {g!r}")
+        else:
+            check(g == [hashlib.sha1(p).digest()], f"ticket {i} beside the poisoned one got {g!r}")
+    check(snap["cpu_fallback_launches"] == 0 and snap["failed_pieces"] == 1, f"poisoned run: {snap}")
+    check(k_launches > 0, "poisoned run: the SHA-1 kernel launched no time")
+    log(
+        f"phase 7: poisoned prefix: ticket {poison} failed alone (SchedLaunchError, deterministic) after "
+        f"{snap['bisections']} bisections, the other 63 got hashlib's digests from {k_launches} "
+        f"sha1_cuda launches, no cpu fallback"
+    )
+    torch.cuda.synchronize()
+    return clean
 
 
 def main() -> dict:
@@ -516,6 +787,7 @@ def main() -> dict:
         log(f"phase 4: wrote {SINGLE_BYTES} + {sum(s for _, s in MULTI_FILES)} seeded bytes")
 
         results = {}
+        infos = {}
         for label, path, storage_root in (
             ("single", single, tmp),
             ("multi", multi_root, tmp),
@@ -532,7 +804,7 @@ def main() -> dict:
                 meta.info.pieces == parse_metainfo(cpu_torrent).info.pieces,
                 f"{label}: gpu authoring differs from hashlib authoring",
             )
-            info = meta.info
+            info = infos[label] = meta.info
             launches0 = sha1_cuda.sha1_pieces_cuda.launches
             t = time.perf_counter()
             bf = verify_pieces(Storage(FsStorage(storage_root), info), info, hasher="gpu", batch_size=BATCH)
@@ -687,6 +959,9 @@ def main() -> dict:
         log(f"phase 5: v2 main path launches {v2_launches}")
         # measured after the counts are read: its launches are not the path's
         stages_v2 = v2_stages(single, single_v2_info)
+
+        # ------------------------------------------------------------ 7
+        sched_launches = sched_phase(tmp, single, multi_root, infos["multi"], rng, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -845,6 +1120,10 @@ def main() -> dict:
                    grid_rec["bound_ms"], grid_rec["bound_by"]),
         ]
     }
+    log(
+        "phase 7: scheduler path launches (default, batch 4096): "
+        f"sha1_cuda {[v[0] for v in sched_launches.values()]} sha256_cuda {[v[1] for v in sched_launches.values()]}"
+    )
     log(json.dumps(kernels))
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "torrent_tpu"))
     check(not leaked, f"the port imported {leaked}")

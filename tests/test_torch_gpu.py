@@ -358,3 +358,238 @@ def test_verify_v2_and_verify_pieces_on_card(cuda, tmp_path):
     gpu = verify_pieces(Storage(FsStorage(tmp_path), info), info, hasher="gpu", batch_size=3)
     cpu = verify_pieces(Storage(FsStorage(tmp_path), info), info, hasher="cpu")
     assert (gpu == cpu).all() and (~gpu).sum() == 1
+
+
+# ------------------------------------------------------------ scheduler
+#
+# The hash-plane scheduler (torrent_tpu_torch/sched) on the card: its
+# sha1 lanes run the SHA-1 kernel through GPUVerifier, its sha256 lanes
+# the SHA-256 row kernel, from pinned staging slots on a copy stream.
+
+
+def _sched_run(coro, timeout: float = 300.0):
+    import asyncio
+
+    return asyncio.run(asyncio.wait_for(coro, timeout))
+
+
+def _sched_torrent(tmp_path, name, n_pieces, plen, seed, pad_files=False, sizes=None):
+    from torrent_tpu_torch.codec.metainfo import parse_metainfo
+    from torrent_tpu_torch.tools.make_torrent import make_torrent
+
+    rng = np.random.default_rng(seed)
+    root = tmp_path / name
+    src = root / "payload"
+    src.mkdir(parents=True)
+    for i, size in enumerate(sizes or [n_pieces * plen]):
+        (src / f"f{i}.bin").write_bytes(rng.bytes(size))
+    target = str(src if sizes else src / "f0.bin")
+    base = str(root if sizes else src)
+    meta = parse_metainfo(
+        make_torrent(target, "http://t.invalid/a", piece_length=plen, pad_files=pad_files)
+    )
+    return Storage(FsStorage(base), meta.info), meta.info
+
+
+def _assert_clean(sched):
+    snap = sched.metrics_snapshot()
+    assert snap["cpu_fallback_launches"] == 0, snap
+    assert snap["launch_failures"] == 0, snap
+    assert all(b["state"] == "closed" for b in snap["breakers"].values()), snap["breakers"]
+    assert snap["staging"]["outstanding"] == 0
+    reuse = sched.staging_reuse()
+    assert reuse["outstanding"] == 0
+    # stream-ordered reuse: slots went back only after their copy event
+    assert reuse["copy_checks"] > 0 and reuse["early_checkins"] == 0, reuse
+
+
+def test_sched_lanes_on_card_match_hashlib(cuda):
+    from torrent_tpu_torch.sched import HashPlaneScheduler, SchedulerConfig
+
+    rng = np.random.default_rng(21)
+    pieces = [rng.bytes(int(n)) for n in rng.integers(0, 16385, size=300)]
+
+    async def go():
+        sched = await HashPlaneScheduler(
+            SchedulerConfig(batch_target=64, flush_deadline=0.01), hasher="gpu"
+        ).start()
+        assert sched.device.type == "cuda" and sched.sha256_backend() == "cuda"
+        s1, s256 = sha1_pieces_cuda.launches, sha256_pieces_cuda.launches
+        try:
+            got1 = await sched.submit("t", pieces, piece_length=16384)
+            got256 = await sched.submit("t", pieces, algo="sha256", piece_length=16384)
+        finally:
+            await sched.close()
+        assert got1 == [hashlib.sha1(p).digest() for p in pieces]
+        assert got256 == [hashlib.sha256(p).digest() for p in pieces]
+        assert sha1_pieces_cuda.launches - s1 >= 5
+        assert sha256_pieces_cuda.launches - s256 >= 5
+        lanes = sched.metrics_snapshot()["lane_stats"]
+        assert lanes["sha1/16384"]["backend"] == "cuda"
+        assert lanes["sha256/16384"]["backend"] == "cuda"
+        # a card's lanes have no hashlib alternative to steer to
+        for key in ("sha1/16384", "sha256/16384"):
+            with pytest.raises(ValueError, match="card"):
+                sched.steer_lane_backend(key, "cpu")
+        _assert_clean(sched)
+
+    _sched_run(go())
+
+
+def test_sched_zero_copy_recheck_on_card(cuda, tmp_path):
+    """A scheduler-fed recheck lands reads in pinned slabs and launches
+    them in place: staged launches, no ``stage`` copy bytes, and the
+    h2d / launch / digest spans (closed on CUDA events) carry bytes."""
+    from torrent_tpu_torch.obs.attrib import attribute
+    from torrent_tpu_torch.obs.ledger import pipeline_ledger
+    from torrent_tpu_torch.obs.tracer import tracer
+    from torrent_tpu_torch.parallel.verify import verify_pieces_sched
+    from torrent_tpu_torch.sched import HashPlaneScheduler, SchedulerConfig
+
+    storage, info = _sched_torrent(tmp_path, "one", 96, 1 << 16, seed=3)
+
+    async def go():
+        led = pipeline_ledger()
+        prev = led.snapshot()
+        sched = await HashPlaneScheduler(
+            SchedulerConfig(batch_target=32, flush_deadline=0.01), hasher="gpu"
+        ).start()
+        try:
+            with tracer().span("recheck", trace_id="t-zero-copy"):
+                bf = await verify_pieces_sched(storage, info, sched)
+        finally:
+            await sched.close()
+        assert bf.all()
+        rep = attribute(led.snapshot(), prev=prev)
+        assert rep["stages"].get("stage", {}).get("bytes", 0) == 0, rep["stages"]
+        for stage in ("read", "h2d", "launch", "digest"):
+            st = rep["stages"][stage]
+            assert st["bytes"] > 0 and st["busy_s"] > 0, (stage, st)
+        tree = tracer().trace_tree("t-zero-copy")
+        launches = [s for s in _flat(tree) if s["name"] == "sched.launch"]
+        assert launches and all(s["attrs"].get("staged") for s in launches)
+        _assert_clean(sched)
+
+    _sched_run(go())
+
+
+def _flat(tree):
+    out = []
+
+    def walk(node):
+        out.append(node)
+        for c in node["children"]:
+            walk(c)
+
+    for root in tree["spans"]:
+        walk(root)
+    return out
+
+
+def test_sched_slot_reuse_never_reads_over_a_copy(cuda, tmp_path):
+    """Two lanes (two piece lengths), launches pipelined two deep, many
+    more batches than slots: every slab is reused dirty, and a BEP 47
+    pad-file torrent's pad spans still hash as zeros from slabs dirtied
+    by another torrent (test_torch_ingest.py's pad-span case, on the
+    card). Every bitfield is hashlib's; the ingest pools drain."""
+    import asyncio
+
+    from torrent_tpu_torch.parallel.verify import verify_pieces_cpu, verify_pieces_sched
+    from torrent_tpu_torch.sched import HashPlaneScheduler, SchedulerConfig
+
+    plen = 16384
+    a = _sched_torrent(tmp_path, "a", 160, plen, seed=5)
+    b = _sched_torrent(tmp_path, "b", 64, 4 * plen, seed=6)
+    padded = _sched_torrent(
+        tmp_path, "pad", 0, plen, seed=9, pad_files=True,
+        sizes=[3 * plen + 123, 2 * plen + 77, 5 * plen + 1],
+    )
+    assert any(getattr(e, "pad", False) for e in padded[1].files)
+
+    async def go():
+        sched = await HashPlaneScheduler(
+            SchedulerConfig(batch_target=8, flush_deadline=0.005, pipeline_depth=2),
+            hasher="gpu",
+        ).start()
+        try:
+            for _ in range(2):
+                got = await asyncio.gather(
+                    verify_pieces_sched(*a, sched, tenant="a"),
+                    verify_pieces_sched(*b, sched, tenant="b"),
+                )
+                assert got[0].all() and got[1].all()
+                for _ in range(2):
+                    assert (await verify_pieces_sched(*padded, sched)).all()
+        finally:
+            await sched.close()
+        assert sched.metrics_snapshot()["launches"] >= 2 * (20 + 8)
+        _assert_clean(sched)
+
+    _sched_run(go())
+    assert verify_pieces_cpu(*padded).all()
+
+
+def test_sched_breaker_trips_and_recloses_on_card(cuda):
+    """``FaultPlan("fail_first=3")`` around the CUDA planes: the breaker
+    opens and the launches it refuses fail with a transient
+    ``SchedLaunchError`` (never hashlib's digests behind the caller's
+    back); after a short cooldown it half-opens, the probe re-closes it,
+    and later launches run on the kernels again."""
+    import asyncio
+    import time
+
+    from torrent_tpu_torch.sched import (
+        FaultPlan,
+        HashPlaneScheduler,
+        SchedLaunchError,
+        SchedulerConfig,
+    )
+
+    plan = FaultPlan.parse("fail_first=3")
+    pieces = [bytes([i + 1]) * 5000 for i in range(16)]
+    want = [hashlib.sha1(p).digest() for p in pieces]
+
+    async def go():
+        sched = await HashPlaneScheduler(
+            SchedulerConfig(
+                batch_target=8, flush_deadline=0.01, breaker_threshold=3,
+                breaker_cooldown=0.5, launch_retries=1,
+                plane_factory=plan.plane_factory(hasher="gpu"),
+            ),
+            hasher="gpu",
+        ).start()
+        try:
+            with pytest.raises(SchedLaunchError) as err:
+                await sched.submit("t", pieces, piece_length=8192)
+            assert err.value.kind == "transient"
+            while sched.metrics_snapshot()["queue_bytes"]:  # the rest refused
+                await asyncio.sleep(0.01)
+            snap = sched.metrics_snapshot()
+            assert snap["breakers"]["sha1/8192"]["state"] == "open", snap["breakers"]
+            # while open, a launch is refused at once: no retry, no
+            # bisection, no hashlib
+            retries, bisections = snap["retries"], snap["bisections"]
+            with pytest.raises(SchedLaunchError, match="breaker open"):
+                await sched.submit("t", pieces[:8], piece_length=8192)
+            snap = sched.metrics_snapshot()
+            assert (snap["retries"], snap["bisections"]) == (retries, bisections)
+            assert snap["cpu_fallback_launches"] == 0
+            await asyncio.sleep(0.7)
+            before = sha1_pieces_cuda.launches
+            t0 = time.monotonic()
+            # one launch: the half-open probe
+            assert await sched.submit("t", pieces[:8], piece_length=8192) == want[:8]
+            assert time.monotonic() - t0 < 60
+            br = sched.metrics_snapshot()["breakers"]["sha1/8192"]
+            assert br["state"] == "closed", br
+            assert br["transitions"].get("open->half_open") == 1
+            assert br["transitions"].get("half_open->closed") == 1
+            assert sha1_pieces_cuda.launches > before
+            before = sha1_pieces_cuda.launches
+            assert await sched.submit("t", pieces, piece_length=8192) == want
+            assert sha1_pieces_cuda.launches > before
+            assert sched.metrics_snapshot()["cpu_fallback_launches"] == 0
+        finally:
+            await sched.close()
+
+    _sched_run(go())

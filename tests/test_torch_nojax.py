@@ -47,6 +47,19 @@ def test_package_has_the_slice():
         "torrent_tpu_torch.tools.make_torrent",
         "torrent_tpu_torch.compat",
         "torrent_tpu_torch.entry",
+        "torrent_tpu_torch.sched",
+        "torrent_tpu_torch.sched.scheduler",
+        "torrent_tpu_torch.sched.faults",
+        "torrent_tpu_torch.sched.control",
+        "torrent_tpu_torch.obs",
+        "torrent_tpu_torch.obs.tracer",
+        "torrent_tpu_torch.obs.hist",
+        "torrent_tpu_torch.obs.attrib",
+        "torrent_tpu_torch.obs.ledger",
+        "torrent_tpu_torch.obs.recorder",
+        "torrent_tpu_torch.obs.profiler",
+        "torrent_tpu_torch.utils.metrics",
+        "torrent_tpu_torch.parallel.bulk",
     ):
         assert name in MODULES
     assert (PACKAGE / "csrc" / "sha1.cu").is_file()

@@ -1,8 +1,8 @@
 """State carried across from the reference package.
 
 The system has no weights: what both packages must share is the torrent
-(v1 info dicts, v2 metainfo and v2 session geometry) and the staged
-batches. These helpers take the reference's objects and
+(v1 info dicts, v2 metainfo and v2 session geometry), the staged
+batches, and the scheduler's and autopilot's configuration. These helpers take the reference's objects and
 numpy arrays by duck typing, so this package never imports
 ``torrent_tpu``; the differential tests use them to feed both packages
 identical input.
@@ -87,6 +87,52 @@ def v2_session_info_from_reference(obj) -> V2SessionInfo:
     )
 
 
+# the reference's v2 backend choices (its pallas kernel, its lax.scan
+# program); the port's device alone decides its own, so the choice is
+# checked and dropped
+REFERENCE_SHA256_BACKENDS = (None, "auto", "pallas", "scan")
+
+
+def scheduler_config_from_reference(cfg):
+    """This package's ``sched.SchedulerConfig`` from the reference's,
+    field by field (any object with its fields will do).
+
+    The reference's ``sha256_backend`` must be one of its own values
+    and is dropped: the port's scheduler takes the CUDA kernel on a GPU
+    and the plain version on ``device="cpu"``. A ``plane_factory`` is
+    refused with ``ValueError``: it is code bound to the reference's
+    planes, not state."""
+    import dataclasses
+
+    from torrent_tpu_torch.sched.scheduler import SchedulerConfig
+
+    if getattr(cfg, "plane_factory", None) is not None:
+        raise ValueError(
+            "plane_factory is code, not state: build the port's own "
+            "(sched.faults.FaultPlan.plane_factory) instead"
+        )
+    backend = getattr(cfg, "sha256_backend", None)
+    if backend not in REFERENCE_SHA256_BACKENDS:
+        raise ValueError(f"unknown reference sha256 backend {backend!r}")
+    return SchedulerConfig(**{
+        f.name: getattr(cfg, f.name)
+        for f in dataclasses.fields(SchedulerConfig)
+        if f.name != "plane_factory"
+    })
+
+
+def control_config_from_reference(cfg):
+    """This package's ``sched.ControlConfig`` from the reference's,
+    field by field (the autopilot's knobs are plain numbers and flags)."""
+    import dataclasses
+
+    from torrent_tpu_torch.sched.control import ControlConfig
+
+    return ControlConfig(
+        **{f.name: getattr(cfg, f.name) for f in dataclasses.fields(ControlConfig)}
+    )
+
+
 def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """A copy of ``arr`` on ``device``; uint32 arrays travel as int32 bits.
 
@@ -97,6 +143,25 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     if arr.dtype == np.uint32:
         arr = arr.view(np.int32)
     return torch.from_numpy(arr).to(device, copy=True)
+
+
+def to_device_on_stream(arr: np.ndarray, stream) -> torch.Tensor:
+    """A copy of ``arr`` on ``stream``'s GPU, allocated and copied on
+    ``stream`` (``non_blocking``); uint32 arrays travel as int32 bits.
+
+    From pinned memory the copy is asynchronous: ``arr`` must stay
+    untouched until an event recorded on ``stream`` after this call has
+    completed, and a consumer on another stream must wait on that event
+    and ``record_stream`` the tensor. From pageable memory the driver
+    stages the source before this returns."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype == np.uint32:
+        arr = arr.view(np.int32)
+    src = torch.from_numpy(arr)
+    with torch.cuda.stream(stream):
+        out = torch.empty(src.shape, dtype=src.dtype, device=stream.device)
+        out.copy_(src, non_blocking=True)
+    return out
 
 
 def batch_from_numpy(

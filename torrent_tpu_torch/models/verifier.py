@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from torrent_tpu_torch.codec.metainfo import InfoDict
-from torrent_tpu_torch.compat import to_device
+from torrent_tpu_torch.compat import to_device, to_device_on_stream
 from torrent_tpu_torch.ops.padding import (
     alloc_padded,
     digests_to_words,
@@ -147,19 +147,29 @@ class GPUVerifier:
         """Whether :meth:`upload_batch` can take this batch."""
         return isinstance(padded, np.ndarray) and padded.ndim == 2
 
-    def upload_batch(self, padded: np.ndarray):
+    def upload_batch(self, padded: np.ndarray, stream=None):
         """Explicit host→device copy; returns a handle for
         :meth:`digest_uploaded`, or None when the batch is not a 2-D
-        array. The staging buffer may be reused when this returns."""
+        array. Without ``stream`` the staging buffer may be reused when
+        this returns. With ``stream`` (a GPU verifier), the copy runs
+        ``non_blocking`` on that stream (``compat.to_device_on_stream``):
+        from a pinned buffer it is asynchronous, and the caller orders
+        the buffer's reuse and the handle's use on the stream."""
         if not self.upload_supported(padded):
             return None
+        if stream is not None and self.device.type == "cuda":
+            return to_device_on_stream(padded, stream)
         return to_device(padded, self.device)
 
-    def digest_uploaded(self, handle, nblocks: np.ndarray) -> torch.Tensor:
+    def digest_uploaded(self, handle, nblocks) -> torch.Tensor:
         """Launch the digest on an :meth:`upload_batch` handle without
-        fetching: returns the device ``int32[B, 5]`` words, and the
-        caller's ``sha1_torch.words_to_numpy`` is the device→host copy."""
-        return self._sha1(handle, to_device(nblocks.astype(np.int32), self.device))
+        fetching, on the current stream: returns the device
+        ``int32[B, 5]`` words, and the caller's
+        ``sha1_torch.words_to_numpy`` is the device→host copy.
+        ``nblocks`` is a numpy array or a tensor already on the device."""
+        if not isinstance(nblocks, torch.Tensor):
+            nblocks = to_device(np.asarray(nblocks).astype(np.int32), self.device)
+        return self._sha1(handle, nblocks)
 
     # ------------------------------------------------------------ authoring
 

@@ -115,7 +115,12 @@ class NativeIOEngine:
             statuses = np.zeros(seg_arr.shape[0], dtype=np.int32)
         elif statuses.dtype != np.int32 or statuses.shape != (seg_arr.shape[0],):
             raise ValueError("statuses must be int32[n_segments]")
-        with self._lock:
+        # pipeline-ledger "read" stage: the batched pread is the storage
+        # boundary of the read_batch paths (read_pieces_chunk instruments
+        # the per-piece Python path; the two never overlap)
+        from torrent_tpu_torch.obs.ledger import pipeline_ledger
+
+        with pipeline_ledger().track("read", int(seg_arr[:, 3].sum())), self._lock:
             rc = self._lib.tt_io_read_batch(
                 self._handle,
                 path_arr,

@@ -15,10 +15,15 @@ Pipeline shape (per batch of B pieces):
 The CPU path (``hasher="cpu"``) is streaming hashlib — the baseline the
 device path is measured against. v2 session infos (``session/v2.py``)
 route to the merkle recheck: SHA-256 16 KiB leaves of a whole piece batch
-in one kernel launch, then one pair launch per tree level on the device,
-and the roots compared there. This ports the single-process routes of
-``torrent_tpu/parallel/verify.py``; its scheduler sessions and the
-multi-process routes come with later slices.
+in one kernel launch, then one merkle launch that reduces every piece's
+tree (up to 9 levels a launch), and the roots compared on the device.
+
+The scheduler sessions (``read_pieces_chunk`` / ``read_pieces_into`` →
+``enqueue_torrent_sched`` → ``verify_pieces_sched``) submit the pieces
+to a shared ``sched.HashPlaneScheduler`` instead of owning a batch loop.
+This ports the single-process routes of the reference's
+``parallel/verify.py``; its multi-process routes come with the
+multi-process slice.
 """
 
 from __future__ import annotations
@@ -143,8 +148,9 @@ def verify_pieces_v2_gpu(
     batch of ``batch_size`` pieces: one ``read_batch``, one staged leaf
     grid ``[m, pad]`` (a piece's full blocks are consecutive, so the
     batch moves as one strided copy), one SHA-256 launch over all its
-    leaves (256 × 64 = 16384 rows at 1 MiB pieces), log2(pad) pair
-    launches on the device, and the roots compared with the expected
+    leaves (256 × 64 = 16384 rows at 1 MiB pieces), one merkle launch
+    reducing all of the batch's trees (``ops/sha256_cuda.merkle_passes``:
+    up to 9 levels a launch), and the roots compared with the expected
     digests there; only ``bool[m]`` comes back. The next batch is read
     on a host thread while the device works.
 
@@ -208,6 +214,261 @@ def verify_pieces_v2_gpu(
                     finish(*pending)
                 pending = (batch, ok_len, _host_copy(ok))
             finish(*pending)
+    return bitfield
+
+
+def read_pieces_chunk(storage: Storage, info: InfoDict, idxs):
+    """Read a chunk of pieces with mark-and-continue semantics.
+
+    Returns ``(payloads, expected, keep)`` — a torn/unreadable/short
+    piece is skipped (stays False in the caller's bitfield) instead of
+    aborting, the same contract as ``verify_pieces_cpu``; OSError too,
+    because a backend that leaks a raw errno (file truncated between
+    open and pread) must not kill the pass. The ONE implementation of
+    the read/filter/keep contract, shared by the scheduler sessions
+    here and (in the reference) the fabric executor — which also
+    makes it the pipeline ledger's ``read`` stage boundary for every
+    scheduler-fed path."""
+    from torrent_tpu_torch.obs.ledger import pipeline_ledger
+
+    payloads, exps, keep = [], [], []
+    with pipeline_ledger().track("read") as tracked:
+        for i in idxs:
+            try:
+                data = storage.read_piece(i)
+            except (StorageError, OSError):
+                continue
+            tracked.add(len(data))
+            if len(data) != piece_length(info, i):
+                continue
+            payloads.append(data)
+            exps.append(info.pieces[i])
+            keep.append(i)
+    return payloads, exps, keep
+
+
+def read_pieces_into(storage: Storage, info: InfoDict, idxs, scheduler):
+    """Zero-copy sibling of :func:`read_pieces_chunk`.
+
+    Checks a staging slab out of the scheduler's ingest pool
+    (``sched._StagingSlots`` via ``checkout_staging``) FIRST, then has
+    ``Storage.read_batch`` — the native ``io_engine.read_into`` pread
+    pool when available, the pure-Python backend walk otherwise — land
+    the reads directly in the slab's row-strided view and pads the rows
+    in place. No intermediate per-piece ``bytes``, no ``np.frombuffer``
+    row copy, no ``_StagingSlots.stage`` pass later: the slab IS the
+    launch buffer.
+
+    Mark-and-continue semantics are preserved: a torn/short/unreadable
+    piece becomes an ``nblocks=0`` sentinel row, is dropped from the
+    returned ticket rows, and stays False in the caller's bitfield —
+    the same contract as ``read_pieces_chunk`` (differential-tested in
+    tests/test_torch_ingest.py, native engine present and absent).
+
+    Returns ``(slab, rows, expected, keep)`` — the caller holds one
+    slab reference and must ``slab.release()`` after hand-off (or on
+    abort) — or ``None`` when this scheduler/geometry can't take
+    pre-staged submissions (callers fall back to the byte path). Any
+    read-path failure checks the slab back in before returning, so a
+    mid-batch ``NativeIOError`` can never leak a slot.
+    """
+    checkout = getattr(scheduler, "checkout_staging", None)
+    if checkout is None:
+        return None
+    idxs = list(idxs)
+    slab = checkout(info.piece_length, len(idxs), algo="sha1")
+    if slab is None:
+        return None
+    try:
+        n = len(idxs)
+        slab.prepare([piece_length(info, i) for i in idxs])
+        ok = np.zeros(n, dtype=bool)
+        storage.read_batch(
+            idxs,
+            out=slab.padded[:n, : info.piece_length],
+            row_status=ok,
+            zero_fill=False,
+        )
+        slab.finalize(ok)
+    except Exception:
+        # whatever broke (engine fault, backend bug): return the slot —
+        # callers retry through the byte path, which re-reads cleanly
+        slab.release()
+        return None
+    rows = [i for i in range(n) if ok[i]]
+    expected = [info.pieces[idxs[i]] for i in rows]
+    keep = [idxs[i] for i in rows]
+    return slab, rows, expected, keep
+
+
+class _SchedChunk:
+    """One read chunk ready for scheduler submission — staged (slab)
+    or byte form, behind one enqueue/discard surface so every
+    scheduler-fed read loop (torrent rechecks, library sweeps, the
+    fabric executor) shares the zero-copy-with-fallback contract."""
+
+    __slots__ = ("slab", "rows", "payloads", "expected", "keep", "piece_length")
+
+    def __init__(self, slab, rows, payloads, expected, keep, piece_length):
+        self.slab = slab
+        self.rows = rows
+        self.payloads = payloads
+        self.expected = expected
+        self.keep = keep
+        self.piece_length = piece_length
+
+    @property
+    def empty(self) -> bool:
+        return not self.keep
+
+    @property
+    def nbytes(self) -> int:
+        if self.slab is not None:
+            return int(self.slab.lengths[list(self.rows)].sum())
+        return sum(len(p) for p in self.payloads)
+
+    async def enqueue(self, scheduler, tenant: str, wait: bool = True):
+        """Submit and hand ownership over: the creator's slab reference
+        is released on EVERY path (tickets keep the slab alive through
+        demux; a shed releases everything)."""
+        if self.slab is not None:
+            slab, self.slab = self.slab, None
+            try:
+                return await scheduler.enqueue_staged(
+                    tenant, slab, self.rows, expected=self.expected, wait=wait
+                )
+            finally:
+                slab.release()
+        return await scheduler.enqueue(
+            tenant,
+            self.payloads,
+            expected=self.expected,
+            algo="sha1",
+            piece_length=self.piece_length,
+            wait=wait,
+        )
+
+    def discard(self) -> None:
+        """Abandon without submitting (empty chunk, caller abort)."""
+        if self.slab is not None:
+            self.slab.release()
+            self.slab = None
+
+
+def read_chunk_for_sched(
+    storage: Storage, info: InfoDict, idxs, scheduler
+) -> _SchedChunk:
+    """Read one chunk for scheduler submission, zero-copy when the
+    scheduler's ingest pool can take it, ``read_pieces_chunk`` bytes
+    otherwise. Runs in a worker thread (both read paths block)."""
+    staged = read_pieces_into(storage, info, idxs, scheduler)
+    if staged is not None:
+        slab, rows, expected, keep = staged
+        if not keep:  # nothing readable: give the slot straight back
+            slab.release()
+            return _SchedChunk(None, None, [], [], [], info.piece_length)
+        return _SchedChunk(slab, rows, None, expected, keep, info.piece_length)
+    payloads, exps, keep = read_pieces_chunk(storage, info, idxs)
+    return _SchedChunk(None, None, payloads, exps, keep, info.piece_length)
+
+
+async def enqueue_torrent_sched(
+    storage: Storage,
+    info: InfoDict,
+    scheduler,
+    tenant: str,
+    chunk_pieces: int | None = None,
+) -> list[tuple]:
+    """Read a torrent's pieces off-thread and enqueue them on the shared
+    hash-plane scheduler WITHOUT awaiting results.
+
+    Returns ``[(future, keep_indices), ...]`` — each future resolves to
+    ok-bytes for the pieces in ``keep_indices`` (rows that failed to read
+    or were short are skipped and stay False in the caller's bitfield).
+    Submissions use blocking admission (``wait=True``): a full queue
+    pauses the disk read loop instead of buffering without bound. Shared
+    by ``verify_pieces_sched`` and ``verify_library_sched`` so the read /
+    filter / keep-demux contract lives in one place.
+
+    Chunks go zero-copy whenever the scheduler's ingest pool covers the
+    geometry (:func:`read_pieces_into` → ``enqueue_staged``): reads for
+    chunk *k+1* land in a second slab while chunk *k*'s H2D/launch runs
+    — the read→h2d→launch overlap the pipeline ledger's occupancy
+    series makes visible.
+    """
+    import asyncio
+
+    chunk = chunk_pieces or scheduler.chunk_for(info.piece_length)
+
+    futs: list[tuple] = []
+    for start in range(0, info.num_pieces, chunk):
+        idxs = list(range(start, min(start + chunk, info.num_pieces)))
+        ck = await asyncio.to_thread(
+            read_chunk_for_sched, storage, info, idxs, scheduler
+        )
+        if ck.empty:
+            ck.discard()
+            continue
+        fut = await ck.enqueue(scheduler, tenant, wait=True)
+        futs.append((fut, ck.keep))
+    return futs
+
+
+async def verify_pieces_sched(
+    storage: Storage,
+    info: InfoDict,
+    scheduler,
+    tenant: str = "verify",
+    chunk_pieces: int | None = None,
+    progress_cb: ProgressCb | None = None,
+) -> np.ndarray:
+    """Recheck through the shared hash-plane scheduler (v1/sha1 infos).
+
+    Instead of owning a private ``GPUVerifier`` batch loop, pieces are
+    read off-thread and submitted to ``scheduler``
+    (``sched.HashPlaneScheduler``): the scheduler coalesces
+    them with every other caller's traffic into full device launches and
+    keeps the geometry-grouped compile cache across sessions. Reads
+    pipeline against launches — submissions are enqueued with blocking
+    admission (``wait=True``), so a full queue pauses the disk read
+    loop instead of buffering without bound.
+
+    A launch failure that outlives the scheduler's retry/bisection
+    (``SchedLaunchError``) marks its pieces unverified (False — retried
+    on the next recheck or re-downloaded) instead of aborting the whole
+    pass: one poisoned piece must not discard every verified one.
+
+    v2 (merkle) infos don't map onto the flat digest plane; use
+    ``verify_pieces`` for those.
+    """
+    from torrent_tpu_torch.sched import SchedLaunchError
+    from torrent_tpu_torch.utils.log import get_logger
+
+    if getattr(info, "v2", False):
+        raise ValueError("scheduler sessions are sha1/v1-only; use verify_pieces")
+    n = info.num_pieces
+    bitfield = np.zeros(n, dtype=bool)
+    if n == 0:
+        return bitfield
+    futs = await enqueue_torrent_sched(storage, info, scheduler, tenant, chunk_pieces)
+    done = 0
+    for fut, keep in futs:
+        try:
+            ok = await fut
+        except SchedLaunchError as e:
+            get_logger("parallel.verify").warning(
+                "recheck: %d pieces unverified (hash launch failed: %s)",
+                len(keep), e,
+            )
+            done += len(keep)  # stay False in the bitfield: retry later
+            if progress_cb:
+                progress_cb(min(done, n), n)
+            continue
+        for j, i in enumerate(keep):
+            bitfield[i] = bool(ok[j])
+        done += len(keep)
+        if progress_cb:
+            progress_cb(min(done, n), n)
     return bitfield
 
 

@@ -1,0 +1,667 @@
+"""Scheduler autopilot — attribution-driven adaptive control.
+
+The verify pipeline has sensors (per-stage ledger, bottleneck
+attributor, lane-fill gauges, queue-wait histograms); this module
+closes the observe→act loop: a periodic
+controller whose **decisions are pure functions of snapshot deltas**
+(no wall clock, no randomness — the decision core sits in the analysis
+plane's determinism pass, exactly like the heartbeat payload builders)
+drives four actuators, each individually config-gated:
+
+* **Adaptive per-lane batch targets + flush deadlines**
+  (``adapt_batch``): when attribution names a stage whose cost is paid
+  per *launch* (``read``/``h2d``/``launch``) and the lane is flushing
+  full (fill ≥ ``fill_high``) with queue waits that show backlog, grow
+  the lane's flush target (×2 per decision, bounded by the staging
+  budget and ``target_max_factor`` × the planned target) so fewer,
+  bigger launches amortize the fixed cost; the flush deadline follows
+  so partial flushes have time to fill. When demand falls (fill <
+  ``fill_low``) the target returns toward the static plan. Applied
+  targets snap to what the built plane actually stages via its
+  existing ``launch_geometry`` hook (the port's planes are row-exact).
+* **Admission budgets that follow the limiting stage**
+  (``adapt_admission``): when a bottleneck is confirmed, stop admitting
+  faster than it drains — the effective global queue budget becomes
+  ``achieved_bps × drain_window_s`` (floored at ``admission_floor`` ×
+  the configured budget). The existing shed/429 and blocking-
+  backpressure machinery does the rest; when the bottleneck clears the
+  budget recovers (×2 per decision) back to the configured value.
+* **Backend steering** (``adapt_backend``): a lane persistently
+  limited by its ``launch`` stage trials the alternative backend:
+  device → cpu for the sha1 lanes of a ``device="cpu"`` scheduler, the
+  same hashlib floor the breaker degrades to there. A card's lanes
+  ('cuda') have no alternative, so the autopilot never moves their work
+  off the kernels; the reference's pallas ↔ scan trial on sha256 lanes
+  has no counterpart (the port has one sha256 plane a device). The
+  trial is hysteresis-guarded: it starts only after ``hysteresis_ticks`` consecutive
+  identical verdicts, is evaluated one cooldown later against the
+  pre-switch achieved launch rate, reverts if it did not improve by
+  ``backend_improve``, and then **pins** the lane — a flapping verdict
+  can never oscillate a lane between backends.
+* **Fleet work rebalancing** lives in the reference's fabric executor
+  and comes with the port's multi-process slice.
+
+**Hysteresis.** Every actuator requires the bottleneck verdict to
+persist ``hysteresis_ticks`` consecutive decisions before acting, and
+backs off ``cooldown_ticks`` after acting. An attribution verdict that
+flaps between two stages therefore never confirms, and the actuators
+hold still — the property the flapping test pins.
+
+**Controller-off is bit-identical.** With no autopilot attached (or
+``ControlConfig(enabled=False)``) every actuator keeps its static
+value: lane targets/deadlines come from ``SchedulerConfig``, the
+admission factor stays 1.0 (the budget comparison short-circuits), and
+backends are the lane plan's. ``decide`` still runs in disabled mode
+(the decision is observable) but nothing is applied.
+
+Surfaces: :meth:`SchedulerAutopilot.status` (last decision + inputs +
+actuator values, the reference's ``GET /v1/control`` payload) and
+``utils/metrics.render_control_metrics`` (``torrent_tpu_control_*``);
+the reference's bridge, ``top``, ``doctor`` and ``bench`` surfaces come
+with the serving slice.
+"""
+
+from __future__ import annotations
+
+import asyncio
+from dataclasses import dataclass
+
+from torrent_tpu_torch.utils.log import get_logger
+
+log = get_logger("sched.control")
+
+__all__ = [
+    "ControlConfig",
+    "SchedulerAutopilot",
+    "build_inputs",
+    "decide",
+    "decision_summary",
+    "initial_state",
+]
+
+# the queue-wait histogram family the controller reads (obs/hist):
+# backlog evidence for the grow law, merged across lanes
+QUEUE_WAIT_FAMILY = "torrent_tpu_sched_queue_wait_seconds"
+
+# stages whose cost is paid per LAUNCH: a bigger batch amortizes them
+# (verdict/stage are per-piece host work a bigger batch cannot help)
+BATCH_AMORTIZED_STAGES = ("read", "h2d", "launch")
+
+# backend-steering alternatives. "cpu" has no entry on purpose: the
+# hashlib plane is the degradation floor — climbing back up is the
+# breaker's half-open job, not the controller's.
+# A card's lanes ("cuda") have none: a GPU scheduler's work never leaves
+# the kernels. The plain PyTorch sha256 plane ("torch", device="cpu"
+# only) has none either.
+ALT_BACKEND = {"device": "cpu"}
+
+
+@dataclass
+class ControlConfig:
+    """Autopilot knobs. Defaults are deliberately conservative: the
+    controller only moves an actuator on a persistent, high-confidence
+    verdict, and every law is bounded on both sides."""
+
+    # master switch: False = decisions are computed (observable via
+    # /v1/control) but never applied — bit-identical static behavior
+    enabled: bool = True
+    # seconds between controller ticks when run as a background loop
+    interval_s: float = 1.0
+    # actuator gates, individually testable
+    adapt_batch: bool = True
+    adapt_admission: bool = True
+    adapt_backend: bool = True
+    # consecutive identical bottleneck verdicts before any actuator may
+    # move (a flapping verdict never confirms)
+    hysteresis_ticks: int = 2
+    # decisions an actuator sits out after moving (per lane)
+    cooldown_ticks: int = 2
+    # a stage must own this share of the interval's wall to count
+    util_threshold: float = 0.6
+    # demanded/achieved must exceed this for the verdict to be worth
+    # acting on (None headroom — only one active stage — passes)
+    headroom_threshold: float = 1.5
+    # lane-fill thresholds for the batch actuator
+    fill_high: float = 0.85
+    fill_low: float = 0.4
+    # lane targets may grow to this multiple of the planned target
+    target_max_factor: int = 8
+    # flush deadlines may grow to this multiple of the configured one
+    deadline_max_factor: float = 8.0
+    # admission budget floor as a fraction of the configured budget
+    admission_floor: float = 0.25
+    # seconds of limiting-stage drain the admission budget may hold
+    drain_window_s: float = 2.0
+    # a backend trial must improve achieved launch B/s by this factor
+    # to be kept; otherwise it reverts (and the lane pins either way)
+    backend_improve: float = 1.1
+
+
+# ----------------------------------------------------------- pure core
+# (analysis determinism pass scope: decisions must be bit-stable given
+# the same snapshot sequence — no wall clock, no randomness, every
+# dict iteration sorted)
+
+
+# determinism-scope
+def initial_state() -> dict:
+    """The controller's fold state: tick counter, bottleneck streak,
+    the last tick the admission shrink condition confirmed, per-lane
+    cooldowns and backend-trial records."""
+    return {
+        "tick": 0,
+        "bn_stage": None,
+        "bn_streak": 0,
+        "adm_confirmed_tick": 0,
+        "lanes": {},
+    }
+
+
+# determinism-scope
+def build_inputs(
+    led_snap: dict,
+    prev_led: dict | None,
+    surface: dict,
+    prev_surface: dict | None,
+    qw_snap=None,
+    prev_qw=None,
+) -> dict:
+    """Assemble one decision's inputs from already-taken snapshots:
+    delta attribution over the ledger, per-lane launch/fill deltas over
+    the scheduler's control surface, and the queue-wait mean over the
+    histogram family delta. Pure: no clocks, no globals."""
+    from torrent_tpu_torch.obs.attrib import attribute
+
+    rep = attribute(led_snap, prev=prev_led)
+    wall = float(rep.get("wall_s") or 0.0)
+    lanes: dict = {}
+    psurf = (prev_surface or {}).get("lanes") or {}
+    for name in sorted((surface or {}).get("lanes") or {}):
+        lane = surface["lanes"][name]
+        prev = psurf.get(name) or {}
+        d_launches = int(lane.get("launches", 0)) - int(prev.get("launches", 0))
+        d_fill = float(lane.get("fill_sum", 0.0)) - float(prev.get("fill_sum", 0.0))
+        bucket = int(lane.get("bucket", 0))
+        target = int(lane.get("target", 1))
+        lanes[name] = {
+            "backend": lane.get("backend"),
+            "bucket": bucket,
+            "granule": max(1, int(lane.get("granule", 1))),
+            "target": target,
+            "base_target": int(lane.get("base_target", target)),
+            "afford": int(lane.get("afford", target)),
+            "deadline": float(lane.get("deadline", 0.0)),
+            "base_deadline": float(lane.get("base_deadline", lane.get("deadline", 0.0))),
+            "pending": int(lane.get("pending", 0)),
+            "launches": max(0, d_launches),
+            "fill": (d_fill / d_launches) if d_launches > 0 else None,
+            # THIS lane's approximate launch throughput over the interval
+            # (fill × target × bucket ≈ bytes per launch) — the backend
+            # trial must judge a lane's steer against the lane's own
+            # rate, never the ledger-global launch aggregate another
+            # lane's traffic can inflate
+            "launch_bps": (
+                (d_fill * target * bucket) / wall
+                if d_launches > 0 and wall > 1e-9 and bucket
+                else None
+            ),
+        }
+    qw_mean = None
+    if qw_snap is not None:
+        _, c1, s1 = qw_snap
+        c0, s0 = 0, 0.0
+        if prev_qw is not None:
+            _, c0, s0 = prev_qw
+        if c1 > c0:
+            qw_mean = max(0.0, (float(s1) - float(s0)) / (int(c1) - int(c0)))
+    return {
+        "attribution": rep,
+        "lanes": lanes,
+        "queue_wait_mean_s": qw_mean,
+        "admission": dict((surface or {}).get("admission") or {}),
+    }
+
+
+# determinism-scope
+def _confirmed_stage(inputs: dict, state: dict, cfg: ControlConfig):
+    """(stage, streak, confirmed): the bottleneck verdict gated by the
+    utilization/headroom thresholds, its consecutive-tick streak, and
+    whether hysteresis has confirmed it."""
+    rep = inputs.get("attribution") or {}
+    bn = rep.get("bottleneck")
+    stage = None
+    if bn and float(bn.get("utilization") or 0.0) >= cfg.util_threshold:
+        hr = bn.get("headroom")
+        if hr is None or float(hr) >= cfg.headroom_threshold:
+            stage = bn.get("stage")
+    if stage is not None and stage == state.get("bn_stage"):
+        streak = int(state.get("bn_streak", 0)) + 1
+    else:
+        streak = 1 if stage is not None else 0
+    confirmed = stage is not None and streak >= cfg.hysteresis_ticks
+    return stage, streak, confirmed
+
+
+# determinism-scope
+def _lane_decisions(inputs, state, cfg, stage, streak, confirmed) -> list[dict]:
+    """Batch-target + flush-deadline actions (per lane, hysteresis- and
+    cooldown-guarded). Grow when a confirmed per-launch-cost stage
+    limits a full-flushing lane with backlog; shrink back toward the
+    static plan when fill collapses."""
+    actions: list[dict] = []
+    tick = state["tick"]
+    qw = inputs.get("queue_wait_mean_s")
+    lanes = inputs.get("lanes") or {}
+    for name in sorted(lanes):
+        lane = lanes[name]
+        ls = state["lanes"].setdefault(name, {})
+        if tick < int(ls.get("batch_cooldown", 0)):
+            continue
+        if not lane["launches"] or lane["fill"] is None:
+            continue  # no traffic this interval: nothing to learn
+        cap = min(lane["afford"], lane["base_target"] * cfg.target_max_factor)
+        # snap the cap DOWN to the launch granule: proposing a target
+        # the scheduler's snap would round back forever is pure chatter
+        granule = max(1, int(lane.get("granule", 1)))
+        if granule > 1 and cap >= granule:
+            cap = cap // granule * granule
+        backlogged = qw is None or qw >= lane["deadline"] * 0.25
+        if (
+            confirmed
+            and stage in BATCH_AMORTIZED_STAGES
+            and lane["fill"] >= cfg.fill_high
+            and lane["target"] < cap
+            and backlogged
+        ):
+            to = min(lane["target"] * 2, cap)
+            actions.append({
+                "actuator": "batch_target", "lane": name,
+                "from": lane["target"], "to": to,
+                "reason": (
+                    f"{stage} limiting x{streak}, fill "
+                    f"{lane['fill']:.2f}: amortize per-launch cost"
+                ),
+            })
+            dl_to = min(
+                lane["deadline"] * 2.0,
+                lane["base_deadline"] * cfg.deadline_max_factor,
+            )
+            if dl_to > lane["deadline"]:
+                actions.append({
+                    "actuator": "flush_deadline", "lane": name,
+                    "from": round(lane["deadline"], 6), "to": round(dl_to, 6),
+                    "reason": "deadline follows the grown target",
+                })
+            ls["batch_cooldown"] = tick + cfg.cooldown_ticks + 1
+        elif lane["fill"] < cfg.fill_low and lane["target"] > lane["base_target"]:
+            to = max(lane["base_target"], lane["target"] // 2)
+            actions.append({
+                "actuator": "batch_target", "lane": name,
+                "from": lane["target"], "to": to,
+                "reason": (
+                    f"fill {lane['fill']:.2f} under {cfg.fill_low}: "
+                    "return toward the static plan"
+                ),
+            })
+            dl_to = max(lane["base_deadline"], lane["deadline"] / 2.0)
+            if dl_to < lane["deadline"]:
+                actions.append({
+                    "actuator": "flush_deadline", "lane": name,
+                    "from": round(lane["deadline"], 6), "to": round(dl_to, 6),
+                    "reason": "deadline follows the shrunk target",
+                })
+            ls["batch_cooldown"] = tick + cfg.cooldown_ticks + 1
+    return actions
+
+
+# determinism-scope
+def _admission_decision(inputs, state, cfg, stage, confirmed) -> list[dict]:
+    """Admission-budget action: while a bottleneck is confirmed, admit
+    no faster than it drains; recover the budget once the shrink
+    condition has not re-confirmed for a cooldown. Recovery keys on the
+    LAST CONFIRMED tick, not on `stage is None` — a flapping verdict
+    (stage set every tick but never confirming) must not leave the
+    budget stuck at the floor forever; it recovers to the static 1.0
+    and rests there, which is the stable endpoint the flapping test
+    demands."""
+    tick = state["tick"]
+    adm = inputs.get("admission") or {}
+    factor = float(adm.get("factor", 1.0))
+    maxq = int(adm.get("max_queue_bytes", 0) or 0)
+    rep = inputs.get("attribution") or {}
+    bn = rep.get("bottleneck") or {}
+    if confirmed and stage != "verdict" and maxq > 0:
+        state["adm_confirmed_tick"] = tick
+        achieved = bn.get("achieved_bps")
+        if achieved:
+            want = max(
+                cfg.admission_floor,
+                min(1.0, (float(achieved) * cfg.drain_window_s) / maxq),
+            )
+            # act only on a meaningful (≥10%) move: the achieved rate
+            # jitters tick to tick and the budget must not chatter
+            if want < factor * 0.9:
+                return [{
+                    "actuator": "admission",
+                    "from": round(factor, 4), "to": round(want, 4),
+                    "reason": (
+                        f"admit no faster than {stage} drains "
+                        f"({cfg.drain_window_s:.0f}s window)"
+                    ),
+                }]
+    elif factor < 1.0 and (
+        tick - int(state.get("adm_confirmed_tick", 0)) > cfg.cooldown_ticks
+    ):
+        to = min(1.0, factor * 2.0)
+        return [{
+            "actuator": "admission",
+            "from": round(factor, 4), "to": round(to, 4),
+            "reason": "bottleneck no longer confirmed: recover the admission budget",
+        }]
+    return []
+
+
+# determinism-scope
+def _backend_decisions(inputs, state, cfg, stage, streak, confirmed) -> list[dict]:
+    """Backend-steering actions with the trial protocol: switch to the
+    alternative on a confirmed launch-limited verdict, evaluate one
+    cooldown later against the pre-switch PER-LANE achieved launch
+    rate, revert unless it improved, and pin the lane either way — no
+    oscillation. Only runs with actuation armed: the trial is stateful
+    (it interprets the next interval as the new backend's performance),
+    so an observe-only controller must not record phantom trials."""
+    actions: list[dict] = []
+    tick = state["tick"]
+    lanes = inputs.get("lanes") or {}
+    for name in sorted(lanes):
+        lane = lanes[name]
+        launch_bps = lane.get("launch_bps")
+        ls = state["lanes"].setdefault(name, {})
+        trial = ls.get("backend_trial")
+        if trial is not None:
+            if tick - int(trial["since"]) <= cfg.cooldown_ticks:
+                continue  # let the new backend accumulate data
+            if launch_bps is None:
+                # zero-traffic interval: the new backend was never
+                # actually measured — extend the trial rather than
+                # issuing a phantom revert-and-pin verdict
+                continue
+            base = trial.get("baseline_bps")
+            improved = bool(
+                base and float(launch_bps) >= float(base) * cfg.backend_improve
+            )
+            if not improved:
+                actions.append({
+                    "actuator": "backend", "lane": name,
+                    "from": lane["backend"], "to": trial["from"],
+                    "reason": "backend trial did not improve; reverting",
+                })
+            ls["backend_trial"] = None
+            ls["backend_pinned"] = True  # one trial per lane per run
+            continue
+        if ls.get("backend_pinned"):
+            continue
+        if not (confirmed and stage == "launch" and lane["launches"] > 0):
+            continue
+        alt = ALT_BACKEND.get(lane["backend"])
+        if alt is None:
+            continue
+        actions.append({
+            "actuator": "backend", "lane": name,
+            "from": lane["backend"], "to": alt,
+            "reason": f"launch limiting x{streak}: trialing {alt}",
+        })
+        ls["backend_trial"] = {
+            "from": lane["backend"],
+            "baseline_bps": launch_bps,
+            "since": tick,
+        }
+    return actions
+
+
+# determinism-scope
+def decide(inputs: dict, state: dict, cfg: ControlConfig) -> tuple[dict, dict]:
+    """One controller decision: pure function of (inputs, state, cfg).
+
+    Returns ``(decision, new_state)``; the caller applies
+    ``decision["actions"]`` through the scheduler's actuator setters
+    (or doesn't, when the controller is disabled). Feeding the same
+    snapshot sequence always yields the same decision sequence."""
+    st = {
+        "tick": int(state.get("tick", 0)) + 1,
+        "bn_stage": state.get("bn_stage"),
+        "bn_streak": int(state.get("bn_streak", 0)),
+        "adm_confirmed_tick": int(state.get("adm_confirmed_tick", 0)),
+        "lanes": {name: dict(state.get("lanes", {})[name])
+                  for name in sorted(state.get("lanes", {}))},
+    }
+    stage, streak, confirmed = _confirmed_stage(inputs, state, cfg)
+    st["bn_stage"], st["bn_streak"] = stage, streak
+    actions: list[dict] = []
+    if cfg.adapt_batch:
+        actions += _lane_decisions(inputs, st, cfg, stage, streak, confirmed)
+    if cfg.adapt_admission:
+        actions += _admission_decision(inputs, st, cfg, stage, confirmed)
+    if cfg.adapt_backend and cfg.enabled:
+        # the trial protocol is stateful (the next interval is read as
+        # the NEW backend's performance), so it only runs when the steer
+        # is actually applied — observe-only mode reports batch and
+        # admission intents but never phantom backend experiments
+        actions += _backend_decisions(inputs, st, cfg, stage, streak, confirmed)
+    bn = (inputs.get("attribution") or {}).get("bottleneck")
+    decision = {
+        "tick": st["tick"],
+        "bottleneck": (
+            {**bn, "streak": streak, "confirmed": confirmed}
+            if stage is not None and bn
+            else None
+        ),
+        "actions": actions,
+    }
+    return decision, st
+
+
+# determinism-scope
+def decision_summary(status: dict) -> str:
+    """One human line for top/doctor: the verdict and what moved."""
+    if not status:
+        return "autopilot: no decision yet"
+    parts = ["autopilot:" if status.get("enabled") else "autopilot (observe-only):"]
+    decision = status.get("decision") or {}
+    bn = decision.get("bottleneck")
+    if bn:
+        parts.append(
+            f"{bn.get('stage')} limiting x{bn.get('streak', 0)}"
+            + (" [confirmed]" if bn.get("confirmed") else "")
+        )
+    else:
+        parts.append("no confirmed bottleneck")
+    applied = status.get("applied") or []
+    if applied:
+        parts.append(
+            "— "
+            + ", ".join(
+                f"{a['actuator']}"
+                + (f"[{a['lane']}]" if a.get("lane") else "")
+                + f" {a.get('from')}→{a.get('applied', a.get('to'))}"
+                for a in applied[:4]
+            )
+        )
+    actuators = status.get("actuators") or {}
+    factor = actuators.get("admission_factor")
+    if factor is not None and factor < 1.0:
+        parts.append(f"(admission ×{factor:.2f})")
+    return " ".join(parts)
+
+
+# ------------------------------------------------------------ autopilot
+
+
+class SchedulerAutopilot:
+    """The observe→act loop around one :class:`HashPlaneScheduler`.
+
+    ``tick()`` is synchronous and cheap (snapshots + dict math); the
+    optional background loop (:meth:`start`) just calls it every
+    ``interval_s``. All state lives on the event loop that owns the
+    scheduler — the bridge's serving loop, or a test's — so no locks
+    are needed (worker threads never touch the autopilot)."""
+
+    def __init__(self, scheduler, config: ControlConfig | None = None):
+        from torrent_tpu_torch.obs.hist import histograms
+        from torrent_tpu_torch.obs.ledger import pipeline_ledger
+
+        self.sched = scheduler
+        self.config = config or ControlConfig()
+        self._state = initial_state()
+        self._last: dict | None = None
+        self._task: asyncio.Task | None = None
+        self._actions_total: dict[str, int] = {}
+        self._backend_switches = 0
+        # baseline snapshots seeded at ATTACH (same discipline as the
+        # fabric executor's _obs_base): the ledger and histogram
+        # registries are process-global, so without a base the first
+        # tick's "delta" would span everything the process did before
+        # the autopilot existed and contaminate its first verdict
+        self._prev_led: dict | None = pipeline_ledger().snapshot()
+        self._prev_surface: dict | None = scheduler.control_surface()
+        self._prev_qw = histograms().family_snapshot(QUEUE_WAIT_FAMILY)
+
+    # ------------------------------------------------------------- tick
+
+    def tick(self) -> dict:
+        """One observe→decide→act pass. Returns the stored status dict
+        (decision + applied actions + inputs summary)."""
+        from torrent_tpu_torch.obs.hist import histograms
+        from torrent_tpu_torch.obs.ledger import pipeline_ledger
+
+        led = pipeline_ledger().snapshot()
+        surface = self.sched.control_surface()
+        qw = histograms().family_snapshot(QUEUE_WAIT_FAMILY)
+        inputs = build_inputs(
+            led, self._prev_led, surface, self._prev_surface, qw, self._prev_qw
+        )
+        decision, self._state = decide(inputs, self._state, self.config)
+        applied = self._apply(decision) if self.config.enabled else []
+        self._prev_led, self._prev_surface, self._prev_qw = led, surface, qw
+        rep = inputs["attribution"]
+        self._last = {
+            "decision": decision,
+            "applied": applied,
+            "inputs": {
+                "wall_s": rep.get("wall_s"),
+                "bottleneck": rep.get("bottleneck"),
+                "queue_wait_mean_s": inputs.get("queue_wait_mean_s"),
+                "lanes": {
+                    name: {
+                        "fill": lane["fill"],
+                        "launches": lane["launches"],
+                        "target": lane["target"],
+                    }
+                    for name, lane in sorted(inputs["lanes"].items())
+                },
+            },
+        }
+        return self._last
+
+    def _apply(self, decision: dict) -> list[dict]:
+        applied: list[dict] = []
+        for action in decision.get("actions", []):
+            kind = action.get("actuator")
+            got = None
+            if kind == "batch_target":
+                got = self.sched.set_lane_target(action["lane"], action["to"])
+            elif kind == "flush_deadline":
+                got = self.sched.set_lane_deadline(action["lane"], action["to"])
+            elif kind == "admission":
+                got = self.sched.set_admission_factor(action["to"])
+            elif kind == "backend":
+                got = self.sched.steer_lane_backend(action["lane"], action["to"])
+                if got is not None:
+                    self._backend_switches += 1
+            if got is not None and got != action.get("from"):
+                self._actions_total[kind] = self._actions_total.get(kind, 0) + 1
+                applied.append({**action, "applied": got})
+                log.info(
+                    "autopilot: %s%s %s -> %s (%s)",
+                    kind,
+                    f"[{action['lane']}]" if action.get("lane") else "",
+                    action.get("from"), got, action.get("reason", ""),
+                )
+        return applied
+
+    # ------------------------------------------------------------- loop
+
+    def start(self) -> "SchedulerAutopilot":
+        """Spawn the periodic tick task on the running loop."""
+        if self._task is None:
+            self._task = asyncio.ensure_future(self._run())
+        return self
+
+    async def _run(self) -> None:
+        while True:
+            await asyncio.sleep(self.config.interval_s)
+            try:
+                self.tick()
+            except Exception as e:  # a bad tick must not kill the loop
+                log.error("autopilot tick failed: %s", e)
+
+    async def close(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            try:
+                await self._task
+            except (asyncio.CancelledError, Exception):
+                pass
+            self._task = None
+
+    # ---------------------------------------------------------- surface
+
+    @staticmethod
+    def _lane_actuators(surface: dict) -> dict:
+        """Per-lane actuator values (one definition shared by /v1/control
+        and the Prometheus rendering, so the two can never diverge)."""
+        return {
+            name: {
+                "target": lane.get("target"),
+                "deadline": lane.get("deadline"),
+                "backend": lane.get("backend"),
+            }
+            for name, lane in sorted((surface.get("lanes") or {}).items())
+        }
+
+    def status(self) -> dict:
+        """The ``GET /v1/control`` payload: last decision, what was
+        applied, the inputs it saw, and every actuator's current value."""
+        surface = self.sched.control_surface()
+        last = self._last or {}
+        return {
+            "enabled": bool(self.config.enabled),
+            "tick": int(self._state.get("tick", 0)),
+            "decision": last.get("decision"),
+            "applied": last.get("applied"),
+            "inputs": last.get("inputs"),
+            "actuators": {
+                "admission_factor": (surface.get("admission") or {}).get(
+                    "factor", 1.0
+                ),
+                "lanes": self._lane_actuators(surface),
+            },
+            "actions_total": dict(sorted(self._actions_total.items())),
+            "backend_switches": self._backend_switches,
+        }
+
+    def metrics_snapshot(self) -> dict:
+        """Scalar counters for ``render_control_metrics``."""
+        surface = self.sched.control_surface()
+        last = self._last or {}
+        decision = last.get("decision") or {}
+        bn = decision.get("bottleneck") or {}
+        return {
+            "enabled": bool(self.config.enabled),
+            "ticks": int(self._state.get("tick", 0)),
+            "actions": dict(sorted(self._actions_total.items())),
+            "backend_switches": self._backend_switches,
+            "admission_factor": (surface.get("admission") or {}).get("factor", 1.0),
+            "bottleneck": bn.get("stage"),
+            "lanes": self._lane_actuators(surface),
+        }

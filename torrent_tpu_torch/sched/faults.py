@@ -1,0 +1,245 @@
+"""Deterministic fault injection for the hash plane.
+
+The fault-tolerance layer in ``scheduler.py`` (launch retry, bisection,
+per-lane circuit breaker, CPU degradation) is only trustworthy if every
+behavior has a deterministic CPU-only test — accelerator faults can't
+be provoked on demand, so they are *injected* instead. A
+:class:`FaultPlan` describes what goes wrong and when:
+
+* ``fail_first`` / ``fail_launches`` — the Nth plane launches raise a
+  *transient* :class:`DeviceFaultError` (the CUDA launch-error model; feeds
+  the breaker, worth a retry).
+* ``payload_prefix`` — any launch whose batch contains a payload with
+  this byte prefix raises a *deterministic*
+  :class:`PoisonedPayloadError` (the poisoned-ticket model; skips
+  retries, drives bisection until the ticket fails alone).
+* ``latency_s`` — every launch sleeps first (latency-spike model; used
+  to prove deadlines/backpressure survive a slow plane). The sleep is
+  accounted to the pipeline ledger's ``h2d`` stage — it models a slow
+  host→device interconnect, which makes bottleneck attribution
+  (``obs/attrib.py``, ``doctor --bottleneck``) deterministically
+  testable on CPU-only hosts.
+* ``read_latency_s`` — same mechanism, accounted to the ledger's
+  ``read`` stage: the slow-storage model. This is how controller tests
+  (``sched/control.py``) deterministically make ``read`` the limiting
+  stage — the regime expected once H2D overlaps.
+* ``dead_after`` — every launch past the Nth raises (permanent device
+  loss; the breaker must pin the lane on the CPU plane).
+
+Plans wrap whatever plane the scheduler would otherwise build, through
+the existing ``SchedulerConfig.plane_factory`` seam::
+
+    plan = FaultPlan.parse("fail_first=3;latency_ms=5")
+    cfg = SchedulerConfig(plane_factory=plan.plane_factory(hasher="cpu"))
+
+In the reference, ``bridge --fault-plan SPEC`` and ``doctor --faults``
+wire the same specs up for manual chaos runs; those tools come with the
+port's serving slice, and ``chip_smoke.py`` drives a poisoned-prefix
+plan through the CUDA planes.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+from torrent_tpu_torch.utils.locks import named_lock
+
+__all__ = [
+    "DeviceFaultError",
+    "FaultPlan",
+    "FaultyPlane",
+    "PoisonedPayloadError",
+]
+
+
+class DeviceFaultError(Exception):
+    """Injected transient device failure (launch hiccup model)."""
+
+    sched_error_class = "transient"
+
+
+class PoisonedPayloadError(Exception):
+    """Injected deterministic failure tied to a payload (poisoned
+    ticket model) — retrying the same batch can never succeed."""
+
+    sched_error_class = "deterministic"
+
+
+@dataclass(frozen=True)
+class FaultPlan:
+    """Declarative description of injected hash-plane faults.
+
+    Launch ordinals are 1-based and counted per wrapped plane (= per
+    scheduler lane), under a lock — pipelined launches run in worker
+    threads, and the count must stay deterministic.
+    """
+
+    # transient: launches 1..fail_first raise DeviceFaultError
+    fail_first: int = 0
+    # transient: these exact launch ordinals raise DeviceFaultError
+    fail_launches: frozenset[int] = field(default_factory=frozenset)
+    # deterministic: a batch containing a payload with this prefix
+    # raises PoisonedPayloadError
+    payload_prefix: bytes | None = None
+    # every launch sleeps this long before running (latency spike,
+    # charged to the ledger's h2d stage — slow interconnect model)
+    latency_s: float = 0.0
+    # every launch sleeps this long charged to the ledger's read stage
+    # (slow-storage model; makes `read` the limiting stage on demand)
+    read_latency_s: float = 0.0
+    # permanent device loss: every launch past this ordinal raises
+    dead_after: int | None = None
+    # fabric-level lying worker (doctor --byzantine): the process
+    # publishes forged verify receipts — every piece claimed ok with a
+    # consistent Merkle root. Consumed by the CLI's fabric-verify path
+    # (FabricConfig.forge_receipts), NOT by FaultyPlane: the lie
+    # happens at the verdict layer, above the hash plane
+    forge_receipts: bool = False
+
+    @classmethod
+    def parse(cls, spec: str) -> "FaultPlan":
+        """Build a plan from the CLI spec grammar: ``;``-separated
+        ``key=value`` pairs, e.g. ``"fail_first=3;latency_ms=5"`` or
+        ``"payload=deadbeef;fail_launches=2,5"``."""
+        kw: dict = {}
+        for part in spec.split(";"):
+            part = part.strip()
+            if not part:
+                continue
+            if "=" not in part:
+                raise ValueError(f"fault-plan term {part!r} is not key=value")
+            key, _, value = part.partition("=")
+            key, value = key.strip(), value.strip()
+            if key not in (
+                "fail_first", "fail_launches", "payload", "latency_ms",
+                "read_latency_ms", "dead_after", "forge_receipts",
+            ):
+                raise ValueError(f"unknown fault-plan key {key!r}")
+            try:
+                if key == "fail_first":
+                    kw["fail_first"] = int(value)
+                elif key == "fail_launches":
+                    kw["fail_launches"] = frozenset(
+                        int(v) for v in value.split(",") if v
+                    )
+                elif key == "payload":
+                    kw["payload_prefix"] = bytes.fromhex(value)
+                elif key == "latency_ms":
+                    kw["latency_s"] = float(value) / 1e3
+                elif key == "read_latency_ms":
+                    kw["read_latency_s"] = float(value) / 1e3
+                elif key == "dead_after":
+                    kw["dead_after"] = int(value)
+                elif key == "forge_receipts":
+                    kw["forge_receipts"] = bool(int(value))
+            except Exception as e:  # int()/fromhex() failures with context
+                raise ValueError(f"bad fault-plan value {part!r}: {e}") from e
+        plan = cls(**kw)
+        if plan.fail_first < 0 or (plan.dead_after is not None and plan.dead_after < 0):
+            raise ValueError("fault-plan launch ordinals must be >= 0")
+        if plan.latency_s < 0 or plan.read_latency_s < 0:
+            raise ValueError("fault-plan latency must be >= 0")
+        if plan.payload_prefix is not None and not plan.payload_prefix:
+            # b"" startswith-matches every payload: a typo'd "payload="
+            # must not silently become fail-every-launch
+            raise ValueError("fault-plan payload prefix must be non-empty")
+        return plan
+
+    def plane_factory(self, hasher: str = "gpu", base_factory=None, device=None):
+        """A ``SchedulerConfig.plane_factory`` injecting this plan
+        around the planes the scheduler would otherwise build (or
+        around ``base_factory``'s planes when given). ``hasher="gpu"``
+        planes run on ``device`` (None means the GPU; pass the
+        scheduler's own, e.g. ``"cpu"`` for the plain PyTorch planes),
+        which alone decides the kernel or plain version."""
+
+        def factory(algo: str, bucket: int, batch: int):
+            from torrent_tpu_torch.sched.scheduler import build_builtin_plane
+
+            if base_factory is not None:
+                inner = base_factory(algo, bucket, batch)
+            else:
+                inner = build_builtin_plane(hasher, algo, bucket, batch, device=device)
+            return FaultyPlane(self, inner)
+
+        return factory
+
+
+class FaultyPlane:
+    """Plane wrapper applying a :class:`FaultPlan` to each launch."""
+
+    def __init__(self, plan: FaultPlan, inner):
+        self.plan = plan
+        self.inner = inner
+        self.launches = 0
+        self._lock = named_lock("sched.faulty_plane._lock")
+
+    def launch_geometry(self, n_rows: int, bucket: int) -> tuple[int, int]:
+        """Faults change nothing about staging: delegate to the wrapped
+        plane's geometry (row-exact if it exposes none)."""
+        hook = getattr(self.inner, "launch_geometry", None)
+        if hook is None:
+            return n_rows, 0
+        return hook(n_rows, bucket)
+
+    def _apply_faults(self, payloads) -> None:
+        """Count the launch and raise per the plan. ``payloads`` may be
+        bytes or the scheduler's zero-copy ``SlotRow`` views — both
+        support ``len`` and the ``startswith`` prefix probe, so fault
+        semantics are identical for byte and slot-carrying submissions."""
+        plan = self.plan
+        with self._lock:
+            self.launches += 1
+            n = self.launches
+        if plan.read_latency_s:
+            from torrent_tpu_torch.obs.ledger import pipeline_ledger
+
+            # slow-storage model: the sleep is charged to the ledger's
+            # read stage, so `read` becomes the limiting stage on demand
+            # (controller tests; the sleep runs outside every obs lock)
+            with pipeline_ledger().track(
+                "read", sum(len(p) for p in payloads)
+            ):
+                time.sleep(plan.read_latency_s)
+        if plan.latency_s:
+            from torrent_tpu_torch.obs.ledger import pipeline_ledger
+
+            # the injected latency models a slow host→device transfer:
+            # account it to the ledger's h2d stage so the bottleneck
+            # attributor can be exercised deterministically without a
+            # device (the sleep runs outside every obs lock)
+            with pipeline_ledger().track(
+                "h2d", sum(len(p) for p in payloads)
+            ):
+                time.sleep(plan.latency_s)
+        if plan.payload_prefix is not None and any(
+            p.startswith(plan.payload_prefix) for p in payloads
+        ):
+            raise PoisonedPayloadError(
+                f"injected poisoned payload (prefix {plan.payload_prefix.hex()}, "
+                f"launch {n})"
+            )
+        if (
+            n <= plan.fail_first
+            or n in plan.fail_launches
+            or (plan.dead_after is not None and n > plan.dead_after)
+        ):
+            raise DeviceFaultError(f"injected device fault (launch {n})")
+
+    def run(self, payloads: list[bytes]) -> list[bytes]:
+        self._apply_faults(payloads)
+        return self.inner.run(payloads)
+
+    def run_staged(self, slab, rows: list[int]) -> list[bytes]:
+        """Zero-copy launch form: same fault plan, applied to the slab's
+        ticket rows, then delegated to the wrapped plane's staged path
+        (or its copy path when it has none)."""
+        from torrent_tpu_torch.sched.scheduler import SlotRow
+
+        slot_rows = [SlotRow(slab, r) for r in rows]
+        self._apply_faults(slot_rows)
+        inner_staged = getattr(self.inner, "run_staged", None)
+        if inner_staged is not None:
+            return inner_staged(slab, rows)
+        return self.inner.run(slot_rows)

@@ -14,8 +14,9 @@ This is the verify-plane subset of ``torrent_tpu/storage/storage.py``,
 with its BEP 52 piece-aligned file table (``info.piece_aligned``, the v2
 session geometry of ``session/v2.py``): the partfile routing of
 deselected files, zero-copy egress handles and the written-map resume
-helpers belong to the session slice. The reference's pipeline-ledger "read"
-accounting is left out on purpose: the ledger is not ported yet.
+helpers belong to the session slice. Both read paths account to the
+pipeline ledger's "read" stage (``obs/ledger.py``): the Python walk here,
+the native pread pool in ``native/io_engine.py``.
 """
 
 from __future__ import annotations
@@ -194,31 +195,39 @@ class Storage:
         lengths = np.empty(n, dtype=np.int64)
         if self._native_read_batch(indices, out, lengths, row_status):
             return out, lengths
-        # pure-Python path, for backends without the native pread pool
-        for row, idx in enumerate(indices):
-            plen = piece_length(self.info, idx)
-            lengths[row] = plen
-            pos = 0
-            base = idx * plen_max
-            for path, foff, chunk in self.segments(base, plen):
-                if path is None:
-                    # pad span: zeros by definition — written explicitly
-                    # because a zero_fill=False caller (reused staging
-                    # buffer) may hand us dirty rows
-                    out[row, pos : pos + chunk] = 0
+        # pure-Python fallback — the pipeline ledger's "read" boundary for
+        # backends without the native pread pool (the native path accounts
+        # inside io_engine.read_into; the two never both run for one row)
+        from torrent_tpu_torch.obs.ledger import pipeline_ledger
+
+        with pipeline_ledger().track("read") as tracked:
+            for row, idx in enumerate(indices):
+                plen = piece_length(self.info, idx)
+                lengths[row] = plen
+                pos = 0
+                base = idx * plen_max
+                for path, foff, chunk in self.segments(base, plen):
+                    if path is None:
+                        # pad span: zeros by definition — written explicitly
+                        # because a zero_fill=False caller (reused staging
+                        # buffer) may hand us dirty rows
+                        out[row, pos : pos + chunk] = 0
+                        pos += chunk
+                        continue
+                    try:
+                        data = self.method.get(path, foff, chunk)
+                        out[row, pos : pos + len(data)] = np.frombuffer(
+                            data, dtype=np.uint8
+                        )
+                        tracked.add(len(data))
+                    except (StorageError, OSError):
+                        # leave zeros; SHA1 mismatch will flag the piece.
+                        # OSError too: a file torn mid-recheck can surface a
+                        # raw errno from backends that don't wrap, and the
+                        # device paths must mark-and-continue like the CPU one
+                        if row_status is not None:
+                            row_status[row] = False
                     pos += chunk
-                    continue
-                try:
-                    data = self.method.get(path, foff, chunk)
-                    out[row, pos : pos + len(data)] = np.frombuffer(data, dtype=np.uint8)
-                except (StorageError, OSError):
-                    # leave zeros; SHA1 mismatch will flag the piece.
-                    # OSError too: a file torn mid-recheck can surface a
-                    # raw errno from backends that don't wrap, and the
-                    # device paths must mark-and-continue like the CPU one
-                    if row_status is not None:
-                        row_status[row] = False
-                pos += chunk
         return out, lengths
 
     def _native_read_batch(

@@ -8,8 +8,8 @@ The reference has no observability beyond stray console.logs and ~20
 WARNING — with a one-time warning, never silently).
 ``TORRENT_TPU_LOG_JSON=1`` switches the handler to structured JSON
 lines (``ts``, ``level``, ``subsystem``, ``msg``), the format log
-shippers ingest without a parse rule. The reference also stamps a
-``trace_id`` from its span tracer; tracing is not ported yet.
+shippers ingest without a parse rule, plus the ``trace_id`` of the
+span tracer's current context (``obs/tracer.py``) when there is one.
 """
 
 from __future__ import annotations
@@ -36,6 +36,14 @@ class _JsonFormatter(logging.Formatter):
             "subsystem": subsystem,
             "msg": record.getMessage(),
         }
+        try:  # lazy: log is imported far below obs in the module graph
+            from torrent_tpu_torch.obs.tracer import tracer
+
+            ctx = tracer().current_context()
+            if ctx is not None:
+                out["trace_id"] = ctx[0]
+        except Exception:
+            pass
         if record.exc_info:
             out["exc"] = self.formatException(record.exc_info)
         return json.dumps(out, sort_keys=True)
