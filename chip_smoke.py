@@ -91,8 +91,36 @@ Phases (any failure exits non-zero, and no phase hides an error):
    the capture's host cost), of the first to last device event, and of
    the profiled run's own wall.
 
+8. The multi-process routes (``torrent_tpu_torch/parallel/distributed.py``,
+   ``fabric/``) on the same payloads. Two ranks are fresh interpreters
+   (``chip_smoke.py --dist-rank R ...``; never a fork of this CUDA
+   process) in one gloo group at a free localhost port, both on
+   ``cuda:0``: the machine has one card, and NCCL runs no two ranks on
+   one device. A rank only loads the kernels phase 2 built (a stale
+   library fails it), and every collective has a timeout; if a rank
+   fails, the parent kills both. Each rank, with its launch counts at 0
+   just before each sub-phase: ``verify_pieces(hasher="gpu",
+   batch_size=4096)`` of phase 4's 2 GiB torrent, auto-routed (each rank
+   hashes its 2048 rows of each global batch: one SHA-1 launch a batch),
+   clean, with one byte flipped by rank 0, and ``verify_storage_distributed``
+   of the flipped file for ``n_valid``; ``verify_pieces`` of phase 5's
+   v2 info (round-robin strides), clean and flipped;
+   ``verify_library_distributed`` of phase 7's library (one torrent a
+   rank); ``verify_library_fabric`` of it over ``AllgatherHeartbeat``,
+   each rank with a started ``HashPlaneScheduler(hasher="gpu")``. Every
+   bitfield must equal hashlib's (phases 4, 5 and 7), both ranks must
+   verify fabric pieces with no adoption, no CPU-fallback launch and no
+   launch failure, and SHA-1 (v1, library, fabric) and SHA-256 rows and
+   merkle (v2) must launch on every rank. The parent then joins an NCCL
+   group at world size 1 (as far as NCCL goes on one card): the count
+   ``all_reduce`` on the card, ``allgather_bitfield``, one
+   ``AllgatherHeartbeat.exchange`` and a 2 GiB ``verify_storage_distributed``.
+   Printed: each sub-phase's wall per rank beside the single-process wall
+   of the same work (phases 4-5, and the library routes run alone here),
+   labelled as two ranks sharing one H100, not multi-card scaling.
+
 The line before the last is the kernels' JSON record (its ``launches``
-are phases 4 and 5's; phase 7 prints its own); the last line is
+are phases 4 and 5's; phases 7 and 8 print their own); the last line is
 ``{"ok": true, "device": {...}}``. The page cache holds the payload when
 it is rechecked (it was just written), so the end-to-end rates measure
 reads from memory, padding, copies and the kernels, not a disk.
@@ -253,9 +281,10 @@ def sched_phase(tmp: str, single: str, multi_root: str, multi_info, rng, card: s
     for p in paths:
         write_random(p, LIB_TORRENT_BYTES, rng)
     t = time.perf_counter()
-    infos = []
+    infos, torrents = [], []
     for p in paths:
-        gpu_meta = parse_metainfo(make_torrent(p, "http://localhost/announce", piece_length=PIECE, hasher="gpu"))
+        torrents.append(make_torrent(p, "http://localhost/announce", piece_length=PIECE, hasher="gpu"))
+        gpu_meta = parse_metainfo(torrents[-1])
         cpu_meta = parse_metainfo(make_torrent(p, "http://localhost/announce", piece_length=PIECE, hasher="cpu"))
         check(gpu_meta.info.pieces == cpu_meta.info.pieces, f"library {p}: gpu authoring differs from hashlib")
         infos.append(gpu_meta.info)
@@ -451,7 +480,334 @@ def sched_phase(tmp: str, single: str, multi_root: str, multi_info, rng, card: s
         f"sha1_cuda launches, no cpu fallback"
     )
     torch.cuda.synchronize()
-    return clean
+    return clean, torrents
+
+
+DIST_RANKS = 2  # phase 8's rank processes, all on cuda:0 (one card: gloo, not NCCL)
+DIST_TIMEOUT_S = 300  # every collective's timeout in the ranks
+DIST_WAIT_S = 900  # the parent's wait for the ranks
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def false_rows(bf) -> list:
+    return [int(i) for i in np.nonzero(~np.asarray(bf))[0]]
+
+
+def rank_main(argv) -> None:
+    """One rank of phase 8 (``chip_smoke.py --dist-rank R ...``): joins
+    the gloo group on the card, runs the four sub-phases on the payloads
+    the parent names in ``spec.json``, and writes ``result_<R>.json``."""
+    import argparse
+    import asyncio
+
+    import torch
+    import torch.distributed as dist
+
+    ap = argparse.ArgumentParser()
+    for flag in ("--dist-rank", "--dist-world"):
+        ap.add_argument(flag, type=int, required=True)
+    for flag in ("--dist-init", "--dist-dir"):
+        ap.add_argument(flag, required=True)
+    a = ap.parse_args(argv)
+    sys.path.insert(0, REPO)
+
+    from torrent_tpu_torch.codec.metainfo import parse_metainfo
+    from torrent_tpu_torch.codec.metainfo_v2 import parse_metainfo_v2
+    from torrent_tpu_torch.native import build as native_build
+    from torrent_tpu_torch.ops import sha1_cuda, sha256_cuda
+    from torrent_tpu_torch.parallel import distributed as D
+    from torrent_tpu_torch.parallel.bulk import verify_library_fabric
+    from torrent_tpu_torch.parallel.verify import verify_pieces
+    from torrent_tpu_torch.sched import HashPlaneScheduler, SchedulerConfig
+    from torrent_tpu_torch.session.v2 import v2_session_meta
+    from torrent_tpu_torch.storage.storage import FsStorage, Storage
+
+    # a rank only loads what phase 2 built: two ranks that both found a
+    # library stale would run two nvccs at once
+    for mod in (sha1_cuda, sha256_cuda):
+        check(not native_build.is_stale(mod.SOURCE, mod.LIBRARY), f"rank {a.dist_rank}: {mod.LIBRARY.name} is stale")
+    check(not native_build.is_stale(native_build._SRC, native_build._LIB), f"rank {a.dist_rank}: the pread pool is stale")
+    with open(os.path.join(a.dist_dir, "spec.json")) as f:
+        spec = json.load(f)
+    rank = a.dist_rank
+    D.initialize(a.dist_init, a.dist_world, rank, backend="gloo", timeout=DIST_TIMEOUT_S)
+    kernels = {
+        "sha1_cuda": sha1_cuda.sha1_pieces_cuda,
+        "sha256_cuda": sha256_cuda.sha256_pieces_cuda,
+        "sha256_merkle_cuda": sha256_cuda.sha256_merkle_cuda,
+    }
+    out = {"rank": rank, "device": str(torch.device("cuda", torch.cuda.current_device())), "sub": {}}
+    tmp = spec["tmp"]
+
+    def timed(name, fn, **record):
+        """Run ``fn`` with every launch count at 0 just before it and
+        read just after; both ranks start together."""
+        dist.barrier()
+        for k in kernels.values():
+            k.launches = 0
+        t = time.perf_counter()
+        value = fn()
+        wall = time.perf_counter() - t
+        out["sub"][name] = dict(record, wall_s=wall, launches={n: k.launches for n, k in kernels.items()})
+        return value
+
+    def flipped(path: str, off: int, fn):
+        """``fn()`` while one byte of ``path`` is flipped (by rank 0)."""
+        dist.barrier()
+        if rank == 0:
+            flip_byte(path, off)
+        dist.barrier()
+        try:
+            return fn()
+        finally:
+            dist.barrier()
+            if rank == 0:
+                flip_byte(path, off)
+            dist.barrier()
+
+    try:
+        with open(spec["v1_torrent"], "rb") as f:
+            info = parse_metainfo(f.read()).info
+
+        def v1():
+            return verify_pieces(Storage(FsStorage(tmp), info), info, hasher="gpu", batch_size=BATCH)
+
+        def v1_direct():
+            return D.verify_storage_distributed(Storage(FsStorage(tmp), info), info, batch_size=BATCH)
+
+        bf = timed("v1 clean", v1)
+        out["sub"]["v1 clean"]["false"] = false_rows(bf)
+        victim, off = spec["victim"], spec["victim_offset"]
+        bf = flipped(victim, off, lambda: timed("v1 flipped", v1))
+        out["sub"]["v1 flipped"]["false"] = false_rows(bf)
+        bf, n_valid = flipped(victim, off, lambda: timed("v1 flipped direct", v1_direct))
+        out["sub"]["v1 flipped direct"].update(false=false_rows(bf), n_valid=int(n_valid))
+
+        with open(spec["v2_torrent"], "rb") as f:
+            v2info = v2_session_meta(parse_metainfo_v2(f.read())).info
+
+        def v2():
+            return verify_pieces(Storage(FsStorage(tmp), v2info), v2info, hasher="gpu")
+
+        bf = timed("v2 clean", v2)
+        out["sub"]["v2 clean"]["false"] = false_rows(bf)
+        bf = flipped(victim, off, lambda: timed("v2 flipped", v2))
+        out["sub"]["v2 flipped"]["false"] = false_rows(bf)
+
+        lib_infos = []
+        for path in spec["lib_torrents"]:
+            with open(path, "rb") as f:
+                lib_infos.append(parse_metainfo(f.read()).info)
+
+        def items():
+            return [(Storage(FsStorage(spec["lib_root"]), i), i) for i in lib_infos]
+
+        bitfields, n_valid = timed("library", lambda: D.verify_library_distributed(items(), batch_size=BATCH))
+        out["sub"]["library"].update(false=[false_rows(bf) for bf in bitfields], n_valid=int(n_valid))
+
+        async def fabric():
+            sched = await HashPlaneScheduler(SchedulerConfig(), hasher="gpu").start()
+            executors: list = []
+            try:
+                res = await verify_library_fabric(items(), sched, executor_out=executors)
+            finally:
+                await sched.close()
+            ex = executors[0]
+            return res, ex.metrics_snapshot(), type(ex.transport).__name__, sched.metrics_snapshot()
+
+        res, fab, transport, snap = timed("fabric", lambda: asyncio.run(fabric()))
+        out["sub"]["fabric"].update(
+            false=[false_rows(bf) for bf in res.bitfields],
+            transport=transport,
+            pieces_verified=fab["pieces_verified"],
+            units_done=fab["units_done"],
+            units_adopted=fab["units_adopted"],
+            cpu_fallback_launches=snap["cpu_fallback_launches"],
+            launch_failures=snap["launch_failures"],
+            staging_outstanding=snap["staging"]["outstanding"],
+        )
+        leaked = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "torrent_tpu"))
+        check(not leaked, f"rank {rank} imported {leaked}")
+    finally:
+        D.shutdown()
+    path = os.path.join(a.dist_dir, f"result_{rank}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(out, f)
+    os.replace(path + ".tmp", path)
+
+
+def run_ranks(d: str) -> list:
+    """Start phase 8's ranks as fresh interpreters (never a fork of this
+    CUDA process), wait for all, and kill every rank if one fails: its
+    peers would wait in a collective until the timeout."""
+    init = f"tcp://127.0.0.1:{free_port()}"
+    procs, logs = [], []
+    for r in range(DIST_RANKS):
+        logs.append(open(os.path.join(d, f"rank{r}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-rank", str(r), "--dist-world", str(DIST_RANKS),
+             "--dist-init", init, "--dist-dir", d],
+            stdout=logs[-1], stderr=subprocess.STDOUT,
+        ))
+    try:
+        deadline = time.monotonic() + DIST_WAIT_S
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    rcs = [p.returncode for p in procs]
+    if rcs != [0] * DIST_RANKS:
+        for r in range(DIST_RANKS):
+            with open(os.path.join(d, f"rank{r}.log")) as f:
+                log(f"  rank {r} (rc {rcs[r]}) log tail:\n{f.read()[-4000:]}")
+        raise SmokeFailure(f"phase 8: ranks exited {rcs}")
+    results = []
+    for r in range(DIST_RANKS):
+        with open(os.path.join(d, f"result_{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def dist_phase(tmp: str, torrents: dict, lib_torrents: list, single: dict, card: str) -> dict:
+    """Phase 8: two ranks sharing the card over gloo, and NCCL at world
+    size 1 (see the module docstring). Returns each rank's launches."""
+    import asyncio
+
+    import torch
+
+    from torrent_tpu_torch.codec.metainfo import parse_metainfo
+    from torrent_tpu_torch.fabric import AllgatherHeartbeat
+    from torrent_tpu_torch.parallel import distributed as D
+    from torrent_tpu_torch.parallel.bulk import verify_library, verify_library_fabric
+    from torrent_tpu_torch.sched import HashPlaneScheduler, SchedulerConfig
+    from torrent_tpu_torch.storage.storage import FsStorage, Storage
+
+    d = os.path.join(tmp, "dist")
+    os.makedirs(d)
+    spec = {"tmp": tmp, "lib_root": os.path.join(tmp, "library"), "victim": os.path.join(tmp, "single.bin"),
+            "victim_offset": 5000 * PIECE + 777, "lib_torrents": []}
+    for key, raw in (("v1_torrent", torrents["single"]), ("v2_torrent", torrents["v2 single"])):
+        spec[key] = os.path.join(d, key + ".torrent")
+        with open(spec[key], "wb") as f:
+            f.write(raw)
+    for i, raw in enumerate(lib_torrents):
+        spec["lib_torrents"].append(os.path.join(d, f"lib{i}.torrent"))
+        with open(spec["lib_torrents"][-1], "wb") as f:
+            f.write(raw)
+    with open(os.path.join(d, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    lib_infos = [parse_metainfo(raw).info for raw in lib_torrents]
+    lib_pieces = sum(i.num_pieces for i in lib_infos)
+
+    def items():
+        return [(Storage(FsStorage(spec["lib_root"]), i), i) for i in lib_infos]
+
+    # the single-process walls of the library routes, for comparison
+    t = time.perf_counter()
+    lib = verify_library(items(), hasher="gpu", batch_size=BATCH)
+    single["library"] = time.perf_counter() - t
+    check(all(bf.all() for bf in lib.bitfields), "phase 8: single-process verify_library not all True")
+
+    async def fabric_solo():
+        sched = await HashPlaneScheduler(SchedulerConfig(), hasher="gpu").start()
+        try:
+            return await verify_library_fabric(items(), sched, nproc=1, pid=0)
+        finally:
+            await sched.close()
+
+    t = time.perf_counter()
+    res = asyncio.run(fabric_solo())
+    single["fabric"] = time.perf_counter() - t
+    check(all(bf.all() for bf in res.bitfields), "phase 8: single-process verify_library_fabric not all True")
+    del lib, res
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    ranks = run_ranks(d)
+    log(f"phase 8: {DIST_RANKS} gloo ranks on {[r['device'] for r in ranks]} ran in s={time.perf_counter() - t:.2f} (start-up included)")
+    n_batches = -(-parse_metainfo(torrents["single"]).info.num_pieces // BATCH)
+    want = {
+        "v1 clean": [], "v1 flipped": [5000], "v1 flipped direct": [5000],
+        "v2 clean": [], "v2 flipped": [(5000 * PIECE + 777) // V2_PIECE],
+        "library": [[]] * len(lib_infos), "fabric": [[]] * len(lib_infos),
+    }
+    for r in ranks:
+        sub = r["sub"]
+        for name, rows in want.items():
+            check(sub[name]["false"] == rows, f"phase 8 rank {r['rank']} {name}: False rows {sub[name]['false']}, hashlib's {rows}")
+        for name in ("v1 clean", "v1 flipped", "v1 flipped direct"):
+            # every rank hashes its 2048 rows of each global batch on the card
+            check(sub[name]["launches"]["sha1_cuda"] == n_batches, f"phase 8 rank {r['rank']} {name}: {sub[name]['launches']}")
+        check(sub["v1 flipped direct"]["n_valid"] == 8191, f"phase 8 rank {r['rank']}: n_valid {sub['v1 flipped direct']['n_valid']}")
+        for name in ("v2 clean", "v2 flipped"):
+            got = sub[name]["launches"]
+            check(got["sha256_cuda"] > 0 and got["sha256_merkle_cuda"] > 0, f"phase 8 rank {r['rank']} {name}: {got}")
+        check(sub["library"]["n_valid"] == lib_pieces, f"phase 8 rank {r['rank']} library n_valid {sub['library']['n_valid']}")
+        fab = sub["fabric"]
+        for name in ("library", "fabric"):
+            check(sub[name]["launches"]["sha1_cuda"] > 0, f"phase 8 rank {r['rank']} {name}: {sub[name]['launches']}")
+        check(fab["transport"] == "AllgatherHeartbeat", f"phase 8 rank {r['rank']} fabric transport {fab['transport']}")
+        check(fab["pieces_verified"] > 0 and fab["units_adopted"] == 0, f"phase 8 rank {r['rank']} fabric {fab}")
+        check(fab["cpu_fallback_launches"] == 0 and fab["launch_failures"] == 0, f"phase 8 rank {r['rank']} fabric {fab}")
+        check(fab["staging_outstanding"] == 0, f"phase 8 rank {r['rank']} fabric {fab}")
+    check(sum(r["sub"]["fabric"]["pieces_verified"] for r in ranks) == lib_pieces, "phase 8: fabric pieces verified")
+    log(
+        f"phase 8: each rank's bitfields equal hashlib's on v1 (clean, flipped piece 5000), v2 (clean, flipped piece "
+        f"{want['v2 flipped'][0]}), verify_library_distributed and verify_library_fabric (AllgatherHeartbeat, "
+        f"pieces verified {[r['sub']['fabric']['pieces_verified'] for r in ranks]}, no adoption, no cpu fallback, "
+        f"no launch failure); v1 n_valid 8191 == popcount"
+    )
+    singles = {
+        "v1 clean": single["v1"], "v1 flipped": single["v1 again"], "v1 flipped direct": single["v1 again"],
+        "v2 clean": single["v2"], "v2 flipped": single["v2 again"],
+        "library": single["library"], "fabric": single["fabric"],
+    }
+    for name in want:
+        walls = " ".join(f"rank {r['rank']} s={r['sub'][name]['wall_s']:.3f}" for r in ranks)
+        launches = " ".join(f"rank {r['rank']} {r['sub'][name]['launches']}" for r in ranks)
+        log(
+            f"time: dist {name}: two ranks sharing one H100 over gloo (not multi-card scaling) {walls}; "
+            f"single process s={singles[name]:.3f}; launches {launches} {card}"
+        )
+
+    # NCCL at the one world size a single card allows
+    backend = D.initialize(f"tcp://127.0.0.1:{free_port()}", 1, 0, backend="nccl", timeout=DIST_TIMEOUT_S)
+    try:
+        check(backend == "nccl", f"phase 8: backend {backend}")
+        count = D.psum_valid_count(torch.tensor([True, False, True, True], device="cuda"))
+        check(count.is_cuda and int(count.item()) == 3, f"phase 8: nccl count {count}")
+        gathered = D.allgather_bitfield(np.array([1, 0, 0, 1], dtype=bool))
+        check(list(gathered) == [True, False, False, True], f"phase 8: nccl allgather {gathered}")
+        peers = AllgatherHeartbeat(1, 0, max_bytes=4096).exchange({"pid": 0, "seq": 1, "t": 0.0})
+        check(peers == {}, f"phase 8: nccl heartbeat peers {peers}")
+        info = parse_metainfo(torrents["single"]).info
+        t = time.perf_counter()
+        bf, n_valid = D.verify_storage_distributed(Storage(FsStorage(tmp), info), info, batch_size=BATCH)
+        nccl_s = time.perf_counter() - t
+        check(bf.all() and n_valid == info.num_pieces, f"phase 8: nccl recheck n_valid {n_valid}")
+    finally:
+        D.shutdown()
+    log(
+        f"phase 8: nccl at world size 1: count all_reduce on the card (3), allgather_bitfield, one "
+        f"AllgatherHeartbeat.exchange and a 2 GiB verify_storage_distributed (n_valid {n_valid}, "
+        f"s={nccl_s:.3f}) {card}"
+    )
+    return {r["rank"]: {name: r["sub"][name]["launches"] for name in want} for r in ranks}
 
 
 def main() -> dict:
@@ -467,6 +823,7 @@ def main() -> dict:
 
     from torrent_tpu_torch.codec.bencode import bencode
     from torrent_tpu_torch.codec.metainfo import parse_metainfo
+    from torrent_tpu_torch.codec.metainfo_v2 import encode_metainfo_v2
     from torrent_tpu_torch.models.v2 import build_hybrid, build_v2, verify_v2
     from torrent_tpu_torch.native import build as native_build
     from torrent_tpu_torch.ops import sha1_cuda, sha256_cuda
@@ -788,6 +1145,7 @@ def main() -> dict:
 
         results = {}
         infos = {}
+        torrents = {}  # the authored bytes phase 8's ranks parse
         for label, path, storage_root in (
             ("single", single, tmp),
             ("multi", multi_root, tmp),
@@ -799,6 +1157,7 @@ def main() -> dict:
             cpu_torrent = make_torrent(path, "http://localhost/announce", piece_length=PIECE, hasher="cpu")
             author_cpu_s = time.perf_counter() - t
             meta = parse_metainfo(gpu_torrent)
+            torrents[label] = gpu_torrent
             check(meta is not None, f"{label}: authored torrent does not parse")
             check(
                 meta.info.pieces == parse_metainfo(cpu_torrent).info.pieces,
@@ -901,6 +1260,7 @@ def main() -> dict:
             check(bf.shape == (info.num_pieces,) and bf.all(), f"v2 {label}: clean verify_pieces not all True")
             if label == "single":
                 single_v2_info = info
+                torrents["v2 single"] = encode_metainfo_v2(gpu_meta.info, gpu_meta.piece_layers)
             # the flat piece index of the flipped byte (files start on
             # piece boundaries in v2's piece space)
             first = 0
@@ -961,7 +1321,14 @@ def main() -> dict:
         stages_v2 = v2_stages(single, single_v2_info)
 
         # ------------------------------------------------------------ 7
-        sched_launches = sched_phase(tmp, single, multi_root, infos["multi"], rng, card)
+        sched_launches, lib_torrents = sched_phase(tmp, single, multi_root, infos["multi"], rng, card)
+
+        # ------------------------------------------------------------ 8
+        single_walls = {
+            "v1": results["single"]["gpu_s"], "v1 again": results["single"]["gpu_again_s"],
+            "v2": v2_results["single"]["vp_s"], "v2 again": v2_results["single"]["vp_again_s"],
+        }
+        dist_launches = dist_phase(tmp, torrents, lib_torrents, single_walls, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1124,6 +1491,7 @@ def main() -> dict:
         "phase 7: scheduler path launches (default, batch 4096): "
         f"sha1_cuda {[v[0] for v in sched_launches.values()]} sha256_cuda {[v[1] for v in sched_launches.values()]}"
     )
+    log(f"phase 8: launches per rank and sub-phase {dist_launches}")
     log(json.dumps(kernels))
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "torrent_tpu"))
     check(not leaked, f"the port imported {leaked}")
@@ -1131,6 +1499,9 @@ def main() -> dict:
 
 
 if __name__ == "__main__":
+    if "--dist-rank" in sys.argv:
+        rank_main(sys.argv[1:])  # a rank of phase 8; its parent reads its file
+        sys.exit(0)
     try:
         result = main()
     except Exception:  # the boundary: report and fail, never exit 0

@@ -1,7 +1,7 @@
 """The port's scheduler autopilot (torrent_tpu_torch/sched/control.py),
 against the reference.
 
-The reference's tests/test_control.py, ported (its fabric rebalance,
+The reference's tests/test_control.py, ported (its
 session ``MetricsServer``, ``top``, bridge and ``bench controller``
 cases wait for later slices; ROADMAP.md lists them). Covers the
 observe→act loop:
@@ -662,6 +662,118 @@ class TestControllerOff:
                 await sched.close()
 
         run(go())
+
+
+# ------------------------------------------------------- fabric rebalance
+
+
+class TestRebalance:
+    def _executors(self, tmp_path, rebalance_pids=(0,)):
+        from test_torch_fabric import make_library
+
+        from torrent_tpu_torch.fabric import FabricConfig, build_fabric_executor
+        from torrent_tpu_torch.storage.storage import FsStorage, Storage
+
+        items1, _, _ = make_library(tmp_path, [12, 20, 7])
+        items2 = [
+            (Storage(FsStorage(s.method.root), info), info)
+            for (s, info) in items1
+        ]
+
+        def mk_sched():
+            return HashPlaneScheduler(
+                SchedulerConfig(batch_target=16, flush_deadline=0.01),
+                hasher="cpu",
+            )
+
+        def mk_exec(items, sched, pid):
+            cfg = FabricConfig(
+                heartbeat_interval=0.05, lapse_after=5.0,
+                rebalance=pid in rebalance_pids, rebalance_after=1,
+            )
+            return build_fabric_executor(
+                items, sched, nproc=2, pid=pid,
+                heartbeat_dir=str(tmp_path / "hb"),
+                config=cfg, unit_bytes=8 * 16384,
+            )
+
+        return items1, items2, mk_sched, mk_exec
+
+    def test_rebalance_offers_pure(self, tmp_path):
+        items1, _, mk_sched, mk_exec = self._executors(tmp_path)
+
+        async def go():
+            sched = await mk_sched().start()
+            try:
+                ex = mk_exec(items1, sched, 0)
+                mine = sorted(ex._queue)
+
+                def roll(me_straggler, helper_ok=True, helper_straggler=False):
+                    return {
+                        "scoreboard": [
+                            {"pid": 0, "status": "ok",
+                             "straggler": me_straggler},
+                            {"pid": 1,
+                             "status": "ok" if helper_ok else "lapsed",
+                             "straggler": helper_straggler},
+                        ]
+                    }
+
+                # straggler with a healthy helper: offer every pending unit
+                assert ex._rebalance_offers(roll(True)) == mine
+                # not a straggler: nothing offered
+                assert ex._rebalance_offers(roll(False)) == []
+                # no healthy helper: nothing offered
+                assert ex._rebalance_offers(roll(True, helper_ok=False)) == []
+                assert ex._rebalance_offers(
+                    roll(True, helper_straggler=True)
+                ) == []
+            finally:
+                await sched.close()
+
+        run(go())
+
+    def test_straggler_offers_and_peer_adopts(self, tmp_path):
+        """End to end: worker 0's fleet view names itself a straggler
+        (forced — in-process executors share one ledger, so real rate
+        divergence can't show up); its unstarted units ride the
+        heartbeat offer list and worker 1 adopts them through the
+        ordinary adoption path. Coverage stays exact and both global
+        bitfields identical."""
+        items1, items2, mk_sched, mk_exec = self._executors(tmp_path)
+
+        async def go():
+            s0 = await mk_sched().start()
+            s1 = await mk_sched().start()
+            try:
+                e0 = mk_exec(items1, s0, 0)
+                e1 = mk_exec(items2, s1, 1)
+                e0.fleet_snapshot = lambda: {  # force the verdict
+                    "scoreboard": [
+                        {"pid": 0, "status": "ok", "straggler": True},
+                        {"pid": 1, "status": "ok", "straggler": False},
+                    ]
+                }
+                await asyncio.gather(e0.run(), e1.run())
+            finally:
+                await s0.close()
+                await s1.close()
+            return e0, e1
+
+        e0, e1 = run(go())
+        snap0, snap1 = e0.metrics_snapshot(), e1.metrics_snapshot()
+        assert snap0["units_offered"] >= 1
+        assert snap1["units_rebalanced"] >= 1
+        assert snap1["units_adopted"] >= snap1["units_rebalanced"]
+        for a, b in zip(e0.bitfields(), e1.bitfields()):
+            assert (a == b).all()
+        total = sum(int(b.sum()) for b in e0.bitfields())
+        assert total == e0.plan.total_pieces
+
+    def test_rebalance_off_by_default(self, tmp_path):
+        from torrent_tpu_torch.fabric import FabricConfig
+
+        assert FabricConfig().rebalance is False
 
 
 # ------------------------------------------------------------ end to end

@@ -386,7 +386,7 @@ def _sched_torrent(tmp_path, name, n_pieces, plen, seed, pad_files=False, sizes=
     target = str(src if sizes else src / "f0.bin")
     base = str(root if sizes else src)
     meta = parse_metainfo(
-        make_torrent(target, "http://t.invalid/a", piece_length=plen, pad_files=pad_files)
+        make_torrent(target, "http://t.invalid/a", piece_length=plen, pad_files=pad_files, hasher="cpu")
     )
     return Storage(FsStorage(base), meta.info), meta.info
 
@@ -593,3 +593,92 @@ def test_sched_breaker_trips_and_recloses_on_card(cuda):
             await sched.close()
 
     _sched_run(go())
+
+
+# ------------------------------------------- multi-process routes on the card
+# Rank processes of tests/test_torch_distributed.py's worker with every
+# rank on the card. One H100 takes two gloo ranks on cuda:0; NCCL, which
+# needs a device a rank, is proved at world size 1.
+
+
+@pytest.fixture
+def built(cuda):
+    """The kernels and the pread pool, built here before any rank starts:
+    the ranks only load them, never race two builds."""
+    from torrent_tpu_torch.native import build as native_build
+    from torrent_tpu_torch.ops import sha1_cuda, sha256_cuda
+
+    sha1_cuda.build()
+    sha256_cuda.build()
+    native_build.build()
+    return cuda
+
+
+def _v1_torrent(tmp_path):
+    from test_torch_distributed import PLEN, make_multi
+
+    sizes = [5 * PLEN + 1000, 14 * PLEN + PLEN // 2]
+    workdir, payload, torrent, info, _ = make_multi(tmp_path, sizes, seed=5)
+    f1 = payload / "f1.bin"
+    buf = bytearray(f1.read_bytes())
+    buf[9 * PLEN - sizes[0] + 17] ^= 0xFF
+    f1.write_bytes(bytes(buf))
+    blob = b"".join((payload / f"f{i}.bin").read_bytes() for i in range(len(sizes)))
+    expected = "".join(
+        "1" if hashlib.sha1(blob[i * PLEN : (i + 1) * PLEN]).digest() == info.pieces[i] else "0"
+        for i in range(info.num_pieces)
+    )
+    assert expected.count("0") == 1
+    return workdir, torrent, info, expected
+
+
+def test_two_gloo_ranks_share_the_card_on_the_v1_route(built, tmp_path):
+    from test_torch_distributed import spawn, v1_layout
+
+    workdir, torrent, info, expected = _v1_torrent(tmp_path)
+    outs = spawn(workdir, 2, "storage", torrent, device="cuda")
+    for rank, rec in enumerate(outs):
+        assert rec["backend"] == "gloo" and rec["world_size"] == 2
+        assert rec["bitfield"] == rec["routed"] == expected
+        assert rec["n_valid"] == expected.count("1")
+        assert rec["rows"] == 2 * v1_layout(rank, 2, 8, info.num_pieces)
+        assert rec["launches"]["sha1_pieces_cuda"] > 0
+
+
+def test_two_gloo_ranks_share_the_card_on_the_v2_route(built, tmp_path):
+    from torrent_tpu_torch.codec.metainfo_v2 import encode_metainfo_v2
+    from torrent_tpu_torch.session.v2 import v2_session_meta
+
+    from test_torch_distributed import spawn
+
+    plen = 65536  # 4 leaves a piece: a 2-level merkle reduction each
+    rng = np.random.default_rng(41)
+    payload = rng.integers(0, 256, 11 * plen + plen // 2, dtype=np.uint8).tobytes()
+    src = tmp_path / "vp.bin"
+    src.write_bytes(payload)
+    meta = build_v2([(("vp.bin",), str(src))], "vp.bin", plen, hasher="cpu")
+    torrent = tmp_path / "vp.torrent"
+    torrent.write_bytes(encode_metainfo_v2(meta.info, meta.piece_layers))
+    buf = bytearray(payload)
+    buf[7 * plen + 5] ^= 0xFF
+    src.write_bytes(bytes(buf))
+    info = v2_session_meta(meta).info
+    expected = verify_pieces(Storage(FsStorage(str(tmp_path)), info), info, hasher="cpu")
+    assert list(np.nonzero(~expected)[0]) == [7]
+    outs = spawn(tmp_path, 2, "v2", torrent, device="cuda")
+    for rank, rec in enumerate(outs):
+        assert rec["bitfield"] == "".join("1" if b else "0" for b in expected)
+        assert rec["n_valid"] == info.num_pieces - 1
+        assert rec["rows"] == list(range(rank, info.num_pieces, 2))
+        assert rec["launches"]["sha256_pieces_cuda"] > 0
+        assert rec["launches"]["sha256_merkle_cuda"] > 0
+
+
+def test_nccl_at_world_size_one(built, tmp_path):
+    from test_torch_distributed import spawn
+
+    (rec,) = spawn(tmp_path, 1, "nccl1", device="cuda", backend="nccl")
+    assert rec["backend"] == "nccl" and rec["world_size"] == 1
+    assert rec["count"] == 3 and rec["count_on_card"]
+    assert rec["gathered"] == "1001"
+    assert rec["peers"] == 0

@@ -65,7 +65,7 @@ def _mk_multifile(tmp_path, seed=7):
         with open(os.path.join(src, f"f{i}.bin"), "wb") as f:
             f.write(rng.integers(0, 256, size, dtype=np.uint8).tobytes())
     meta = parse_metainfo(
-        make_torrent(src, "http://t.invalid/announce", piece_length=PLEN)
+        make_torrent(src, "http://t.invalid/announce", piece_length=PLEN, hasher="cpu")
     )
     # torn: truncate f1 mid-file; unreadable: delete f2 entirely
     f1 = os.path.join(src, "f1.bin")
@@ -85,7 +85,7 @@ def _mk_single(tmp_path, n_pieces=32, seed=3):
     with open(payload, "wb") as f:
         f.write(rng.integers(0, 256, n_pieces * PLEN, dtype=np.uint8).tobytes())
     meta = parse_metainfo(
-        make_torrent(payload, "http://t.invalid/announce", piece_length=PLEN)
+        make_torrent(payload, "http://t.invalid/announce", piece_length=PLEN, hasher="cpu")
     )
     return Storage(FsStorage(str(tmp_path)), meta.info), meta.info
 
@@ -383,7 +383,7 @@ class TestPadFileSlabReuse:
                 f.write(rng.integers(0, 256, size, dtype=np.uint8).tobytes())
         meta_b = parse_metainfo(
             make_torrent(src, "http://t.invalid/a", piece_length=PLEN,
-                         pad_files=True)
+                         pad_files=True, hasher="cpu")
         )
         storage_b = Storage(FsStorage(root), meta_b.info)
         assert any(

@@ -60,6 +60,13 @@ def test_package_has_the_slice():
         "torrent_tpu_torch.obs.profiler",
         "torrent_tpu_torch.utils.metrics",
         "torrent_tpu_torch.parallel.bulk",
+        "torrent_tpu_torch.parallel.distributed",
+        "torrent_tpu_torch.fabric",
+        "torrent_tpu_torch.fabric.plan",
+        "torrent_tpu_torch.fabric.receipts",
+        "torrent_tpu_torch.fabric.executor",
+        "torrent_tpu_torch.obs.fleet",
+        "torrent_tpu_torch.tools.fabric_verify",
     ):
         assert name in MODULES
     assert (PACKAGE / "csrc" / "sha1.cu").is_file()

@@ -3,7 +3,7 @@ latency histograms, flight recorder, pipeline ledger and bottleneck
 attributor, and their scheduler integrations.
 
 The cases of the reference's tests/test_obs.py and tests/test_pipeline.py
-that touch only ported modules, ported. The bridge, fabric, sanitizer,
+that touch only ported modules, ported. The bridge, sanitizer,
 trace-CLI, ``doctor``, ``bench``, ``top`` and trajectory cases wait for
 later slices (ROADMAP.md lists them). The profiler case runs on
 ``torch.profiler`` in place of ``jax.profiler``.
@@ -657,7 +657,7 @@ def _mk_torrent(tmp_path, n_pieces=32, plen=16384, seed=11):
     with open(payload, "wb") as f:
         f.write(rng.integers(0, 256, n_pieces * plen, dtype=np.uint8).tobytes())
     meta = parse_metainfo(
-        make_torrent(payload, "http://t.invalid/announce", piece_length=plen)
+        make_torrent(payload, "http://t.invalid/announce", piece_length=plen, hasher="cpu")
     )
     return Storage(FsStorage(str(tmp_path)), meta.info), meta.info
 
@@ -908,3 +908,103 @@ class TestBottleneckAcceptance:
 
         run(go())
 
+
+# -------------------------------------------------------------- fabric
+
+
+class TestFabricTracing:
+    def test_heartbeat_carries_deterministic_span_context(self, tmp_path):
+        from test_torch_fabric import cpu_sched, make_library
+        from torrent_tpu_torch.fabric import FabricConfig, FabricExecutor, FileHeartbeat
+        from torrent_tpu_torch.fabric.plan import plan_library
+
+        async def go():
+            items, _, _ = make_library(tmp_path, [6])
+            plan = plan_library([info for _, info in items], 1)
+            hb_dir = tmp_path / "hb"
+            sched = cpu_sched()
+            await sched.start()
+            try:
+                ex = FabricExecutor(
+                    items, plan, 0, sched,
+                    FabricConfig(heartbeat_interval=0.05),
+                    transport=FileHeartbeat(str(hb_dir), 0),
+                )
+                await ex.run()
+            finally:
+                await sched.close()
+            payload = json.loads((hb_dir / "fabric_hb_0.json").read_text())
+            want_tid = fabric_trace_id(plan.fingerprint(), 0)
+            assert payload["span"]["trace"] == want_tid
+            assert payload["span"]["seq"] == payload["seq"]
+            # unit spans landed in the deterministic fabric trace
+            tree = tracer().trace_tree(want_tid)
+            names = span_names(tree)
+            assert "fabric.unit" in names and "fabric.run" in names
+            assert ex.metrics_snapshot()["trace_id"] == want_tid
+
+        run(go())
+
+    def test_sentinel_distrust_triggers_dump(self, tmp_path):
+        """A lying peer's verdicts fail the sentinel cross-check: the
+        distrust must leave exactly one black-box dump behind."""
+        from test_torch_fabric import cpu_sched, make_library
+        from torrent_tpu_torch.fabric import (
+            FabricConfig,
+            FabricExecutor,
+            FileHeartbeat,
+            pack_bits,
+        )
+        from torrent_tpu_torch.fabric.plan import plan_library
+
+        import numpy as np
+
+        async def go():
+            PLEN = 16384
+            items, _, ddir = make_library(tmp_path, [12])
+            plan = plan_library(
+                [info for _, info in items], 2, unit_bytes=3 * PLEN
+            )
+            hb_dir = str(tmp_path / "hb")
+            # a dead peer (pid 1) claims its unit is all-valid — but its
+            # first piece is corrupt on disk, so the sentinel re-hash of
+            # exactly that piece must reject the verdicts
+            liar_unit = plan.units_for(1)[0]
+            payload = ddir / "lib0" / "payload.bin"
+            buf = bytearray(payload.read_bytes())
+            buf[liar_unit.start * PLEN + 11] ^= 0xFF
+            payload.write_bytes(bytes(buf))
+            FileHeartbeat(hb_dir, 1).exchange(
+                {
+                    "pid": 1, "seq": 1, "t": 0.0, "fp": plan.fingerprint(),
+                    "degraded": False,
+                    "done": {
+                        str(liar_unit.uid): pack_bits(
+                            np.ones(liar_unit.npieces, dtype=bool)
+                        )
+                    },
+                    "inflight": [], "distrust": [], "redone": [],
+                }
+            )
+            sched = cpu_sched()
+            await sched.start()
+            try:
+                ex = FabricExecutor(
+                    items, plan, 0, sched,
+                    FabricConfig(heartbeat_interval=0.05, lapse_after=0.2),
+                    transport=FileHeartbeat(hb_dir, 0),
+                )
+                await asyncio.wait_for(ex.run(), 60)
+                assert ex.metrics_snapshot()["sentinel_mismatches"] >= 1
+            finally:
+                await sched.close()
+            counts = flight_recorder().counts()
+            assert counts.get("fabric_distrust") == 1
+            dump = [
+                d for d in flight_recorder().dumps()
+                if d["reason"] == "fabric_distrust"
+            ][0]
+            assert dump["detail"]["peer"] == 1
+            assert dump["snapshots"]["fabric"]["pid"] == 0
+
+        run(go())

@@ -280,6 +280,27 @@ class TestAuthoring:
                            hasher="gpu", device=CPU, batch_size=4)
         assert bf.all()
 
+    @pytest.mark.parametrize("pad_files", [False, True])
+    def test_whole_torrent_bytes_match_reference(self, tmp_path, monkeypatch, pad_files):
+        """The whole authored bytes, outside the info dict too (announce
+        tiers, url-list, comment, ``created by``), equal the reference's
+        once both read the same clock for ``creation date``."""
+        import time
+
+        rng = np.random.default_rng(16)
+        root = tmp_path / "payload"
+        for rel, size in (("a.bin", 5_000), ("sub/b.bin", 2_049), ("sub/e.bin", 0), ("z.bin", 7)):
+            (root / rel).parent.mkdir(parents=True, exist_ok=True)
+            (root / rel).write_bytes(rng.integers(0, 256, size=size, dtype=np.uint8).tobytes())
+        monkeypatch.setattr(time, "time", lambda: 1_760_000_000.5)
+        kw = dict(
+            piece_length=2048, pad_files=pad_files, comment="c", private=True,
+            announce_list=[["http://t/a"], ["udp://t/b"]], web_seeds=["http://w/"],
+        )
+        ref = ref_make_torrent(str(root), "http://t/a", hasher="cpu", **kw)
+        assert make_torrent(str(root), "http://t/a", hasher="gpu", device=CPU, **kw) == ref
+        assert make_torrent(str(root), "http://t/a", hasher="cpu", **kw) == ref
+
     def test_single_file_short_last_piece(self, tmp_path):
         path = tmp_path / "one.bin"
         path.write_bytes(np.random.default_rng(15).bytes(9_000))
@@ -339,6 +360,16 @@ class TestEntryPointsRaiseWithoutGpu:
         (tmp_path / "f").write_bytes(b"x" * 100)
         with pytest.raises(RuntimeError, match="CUDA"):
             make_torrent(str(tmp_path / "f"), "http://t/a", hasher="gpu")
+
+    def test_verify_pieces_defaults_to_the_card(self, no_cuda):
+        info, storage, _, _ = build_torrent(4096, 4096)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            verify_pieces(storage, info)
+
+    def test_make_torrent_defaults_to_the_card(self, no_cuda, tmp_path):
+        (tmp_path / "f").write_bytes(b"x" * 100)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_torrent(str(tmp_path / "f"), "http://t/a")
 
     def test_entry_and_sha1_fn(self, no_cuda):
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -2,7 +2,7 @@
 
 The system has no weights: what both packages must share is the torrent
 (v1 info dicts, v2 metainfo and v2 session geometry), the staged
-batches, and the scheduler's and autopilot's configuration. These helpers take the reference's objects and
+batches, and the scheduler's, autopilot's and fabric's configuration. These helpers take the reference's objects and
 numpy arrays by duck typing, so this package never imports
 ``torrent_tpu``; the differential tests use them to feed both packages
 identical input.
@@ -130,6 +130,20 @@ def control_config_from_reference(cfg):
 
     return ControlConfig(
         **{f.name: getattr(cfg, f.name) for f in dataclasses.fields(ControlConfig)}
+    )
+
+
+def fabric_config_from_reference(cfg):
+    """This package's ``fabric.FabricConfig`` from the reference's,
+    field by field: the fabric's knobs (tenant, weights, byte budgets,
+    heartbeat and lapse intervals, Byzantine and fault hooks) are plain
+    numbers, strings and flags, so both fabrics can run one config."""
+    import dataclasses
+
+    from torrent_tpu_torch.fabric.executor import FabricConfig
+
+    return FabricConfig(
+        **{f.name: getattr(cfg, f.name) for f in dataclasses.fields(FabricConfig)}
     )
 
 

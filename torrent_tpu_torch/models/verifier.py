@@ -14,8 +14,9 @@ the same contracts:
 Every batch has ``batch_size`` rows; a ragged tail is filled with
 ``nblocks=0`` sentinel rows. On a GPU the SHA-1 is the hand-written
 kernel (ops/sha1_cuda.py); with ``device="cpu"`` it is the plain PyTorch
-version. This slice runs on one device: the reference's mesh and
-``shard_map`` wait for the multi-GPU slice.
+version. A verifier runs on one device: the reference's mesh and
+``shard_map`` become one verifier a rank of a ``torch.distributed``
+group (``parallel/distributed.py``).
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ class _CpuSlot:
     def __init__(self, b: int, plen: int):
         self.padded, _ = alloc_padded(b, plen)
         self.nblocks = np.zeros(b, dtype=np.int32)
+        self.ok_dev = None
         self._ok = None
 
     def wait_host_free(self) -> None:
@@ -59,7 +61,8 @@ class _CpuSlot:
 
     def launch(self, sha1, expected: torch.Tensor) -> None:
         words = sha1(torch.from_numpy(self.padded), torch.from_numpy(self.nblocks))
-        self._ok = (words == expected).all(dim=1).numpy()
+        self.ok_dev = (words == expected).all(dim=1)
+        self._ok = self.ok_dev.numpy()
 
     def fetch_ok(self) -> np.ndarray:
         return self._ok
@@ -72,7 +75,9 @@ class _CudaSlot:
     ``copy_done`` marks the end of this slot's host→device copy, after
     which the host buffers may be refilled; ``compute_done`` marks the
     end of its kernel, compare and result copy, after which the device
-    buffers may be overwritten and the result read.
+    buffers may be overwritten and the result read. ``ok_dev`` is the
+    last launch's ``bool[B]`` on the device, ordered on the compute
+    stream (the multi-process route counts it there).
     """
 
     def __init__(self, b: int, plen: int, device: torch.device, copy_stream):
@@ -88,6 +93,7 @@ class _CudaSlot:
         self._copy_stream = copy_stream
         self._copy_done = torch.cuda.Event()
         self._compute_done = torch.cuda.Event()
+        self.ok_dev = None
 
     def wait_host_free(self) -> None:
         # an event never recorded is complete: the first fill never waits
@@ -103,7 +109,8 @@ class _CudaSlot:
         compute = torch.cuda.current_stream(self._device)
         compute.wait_event(self._copy_done)
         words = sha1(self._dev_data, self._dev_nblocks)
-        self._host_ok.copy_((words == expected).all(dim=1), non_blocking=True)
+        self.ok_dev = (words == expected).all(dim=1)
+        self._host_ok.copy_(self.ok_dev, non_blocking=True)
         self._compute_done.record(compute)
 
     def fetch_ok(self) -> np.ndarray:
@@ -205,6 +212,18 @@ class GPUVerifier:
 
     # ------------------------------------------------------------ recheck
 
+    def staging_slots(self) -> list:
+        """The two staging slots a recheck alternates: pinned host and
+        device buffers ordered by events on a GPU (``_CudaSlot``), plain
+        numpy buffers on the CPU (``_CpuSlot``). Each has ``padded`` and
+        ``nblocks`` to fill after ``wait_host_free()``, then
+        ``launch(sha1, expected)`` and ``fetch_ok()``."""
+        b, plen = self.batch_size, self.piece_length
+        if self.device.type == "cuda":
+            copy_stream = torch.cuda.Stream(self.device)
+            return [_CudaSlot(b, plen, self.device, copy_stream) for _ in range(2)]
+        return [_CpuSlot(b, plen) for _ in range(2)]
+
     def verify_storage(
         self,
         storage: Storage,
@@ -237,11 +256,7 @@ class GPUVerifier:
         expected = np.zeros((-(-n // b) * b, 5), dtype=np.uint32)
         expected[:n] = digests_to_words(info.pieces)
         expected_dev = to_device(expected, self.device)
-        if self.device.type == "cuda":
-            copy_stream = torch.cuda.Stream(self.device)
-            slots = [_CudaSlot(b, plen, self.device, copy_stream) for _ in range(2)]
-        else:
-            slots = [_CpuSlot(b, plen) for _ in range(2)]
+        slots = self.staging_slots()
         stripes = max(1, io_threads)
         io_pool = ThreadPoolExecutor(max_workers=stripes) if stripes > 1 else None
 

@@ -9,9 +9,14 @@ library's final batch is ragged.
 
 ``verify_library_sched`` runs the same sweep as a session of the shared
 hash-plane scheduler (``sched/``), so a bulk recheck coalesces with
-foreground verify traffic instead of competing for the card. The
-reference's multi-process routes (``verify_library_distributed``,
-``verify_library_fabric``) come with the port's multi-process slice.
+foreground verify traffic instead of competing for the card.
+
+Across processes, each rank runs ``verify_library`` over its shard of
+the library (``parallel/distributed.verify_library_distributed``), and
+``verify_library_fabric`` composes that sharding WITH the shared
+scheduler: each process's shard feeds its local continuous-batching
+queue (``torrent_tpu_torch/fabric``), so multi-process rechecks coalesce
+with foreground verify traffic instead of competing for the plane.
 """
 
 from __future__ import annotations
@@ -233,3 +238,66 @@ async def verify_library_sched(
         if progress_cb:
             progress_cb(min(done, total_pieces), total_pieces)
     return LibraryResult(bitfields, total_pieces, total_bytes, time.perf_counter() - t0)
+
+
+async def verify_library_fabric(
+    items: list[tuple[Storage, InfoDict]],
+    scheduler,
+    nproc: int | None = None,
+    pid: int | None = None,
+    heartbeat_dir: str | None = None,
+    transport=None,
+    fabric_config=None,
+    unit_bytes: int | None = None,
+    progress_cb=None,
+    executor_out: list | None = None,
+) -> LibraryResult:
+    """Pod-scale bulk validation THROUGH each process's scheduler —
+    the composition of ``verify_library_sched`` (cross-tenant
+    coalescing) and ``verify_library_distributed`` (process sharding).
+
+    A deterministic byte-weight shard plan is computed identically on
+    every process (``torrent_tpu_torch.fabric.plan`` — no coordinator RPC);
+    each process feeds its shard of (torrent, piece-range) units into
+    its LOCAL scheduler as a low-priority ``"fabric"`` tenant, so bulk
+    recheck launches coalesce with foreground verify traffic instead of
+    competing with it. A periodic few-byte heartbeat carries progress
+    and verdict bits; survivors adopt orphaned units from lapsed or
+    breaker-degraded processes with a sentinel cross-check per adopted
+    unit (see ``torrent_tpu_torch.fabric.executor``).
+
+    ``items``: the SAME list, in the same order, on every process (each
+    host opens its own storage handles; only the shard is read).
+    ``nproc``/``pid`` default to the live ``torch.distributed`` process
+    group (world size and rank); pass them explicitly (with
+    ``heartbeat_dir`` for the shared-filesystem heartbeat transport) to
+    run without a process group.
+    ``executor_out``: optional list the executor is appended to, so
+    callers can poll ``metrics_snapshot()`` while the sweep runs.
+
+    Returns a :class:`LibraryResult` whose bitfields are identical on
+    every process. ``progress_cb`` reports THIS process's verified
+    pieces against the library-wide total.
+    """
+    from torrent_tpu_torch.fabric import DEFAULT_UNIT_BYTES, build_fabric_executor
+
+    t0 = time.perf_counter()
+    ex = build_fabric_executor(
+        items,
+        scheduler,
+        nproc=nproc,
+        pid=pid,
+        heartbeat_dir=heartbeat_dir,
+        transport=transport,
+        config=fabric_config,
+        unit_bytes=unit_bytes or DEFAULT_UNIT_BYTES,
+        progress_cb=progress_cb,
+    )
+    if executor_out is not None:
+        executor_out.append(ex)
+    await ex.run()
+    total_pieces = sum(info.num_pieces for _, info in items)
+    total_bytes = sum(info.length for _, info in items)
+    return LibraryResult(
+        ex.bitfields(), total_pieces, total_bytes, time.perf_counter() - t0
+    )

@@ -21,9 +21,9 @@ tree (up to 9 levels a launch), and the roots compared on the device.
 The scheduler sessions (``read_pieces_chunk`` / ``read_pieces_into`` →
 ``enqueue_torrent_sched`` → ``verify_pieces_sched``) submit the pieces
 to a shared ``sched.HashPlaneScheduler`` instead of owning a batch loop.
-This ports the single-process routes of the reference's
-``parallel/verify.py``; its multi-process routes come with the
-multi-process slice.
+In a ``torch.distributed`` group of more than one rank, the device
+routes go multi-process (``parallel/distributed.py``), as the
+reference's go over ``jax.distributed``.
 """
 
 from __future__ import annotations
@@ -92,11 +92,32 @@ def verify_pieces_gpu(
     device=None,
     progress_cb: ProgressCb | None = None,
     io_threads: int = 4,
+    local: bool = False,
 ) -> np.ndarray:
     """Batched device recheck; overlaps disk reads with device hashing.
 
     ``device=None`` means the GPU, and a host without one raises.
+
+    In a ``torch.distributed`` default process group of more than one
+    rank this routes to the multi-process path: every rank verifies its
+    slice of each global batch and all return the identical global
+    bitfield (``parallel/distributed.py``). ``local=True`` keeps a rank
+    of such a group on the rank-local path, as a local-only mesh does in
+    the reference.
     """
+    from torrent_tpu_torch.parallel.distributed import verify_storage_distributed, world
+
+    if not local and world()[0] > 1:
+        bitfield, _ = verify_storage_distributed(
+            storage,
+            info,
+            batch_size=batch_size,
+            device=device,
+            progress_cb=progress_cb,
+            io_threads=io_threads,
+        )
+        return bitfield
+
     from torrent_tpu_torch.models.verifier import GPUVerifier
 
     verifier = GPUVerifier(
@@ -475,17 +496,24 @@ async def verify_pieces_sched(
 def verify_pieces(
     storage: Storage,
     info: InfoDict,
-    hasher: str = "cpu",
+    hasher: str = "gpu",
     progress_cb: ProgressCb | None = None,
     **gpu_kwargs,
 ) -> np.ndarray:
     """Recheck every piece; returns ``bool[n_pieces]``.
 
-    ``hasher``: ``"cpu"`` (streaming hashlib) or ``"gpu"`` (the batched
-    device path, the counterpart of the reference's ``"tpu"``; takes
-    ``device``, ``batch_size`` and ``io_threads``). v2 session infos
-    (session/v2.py) route to the merkle recheck automatically; the
-    reference's multi-process v2 route waits for the multi-GPU slice.
+    ``hasher``: ``"gpu"`` (the default: the batched device path, the
+    counterpart of the reference's ``"tpu"``; takes ``device``,
+    ``batch_size``, ``io_threads`` and ``local``) or ``"cpu"``
+    (streaming hashlib). v2 session infos (session/v2.py) route to the
+    merkle recheck automatically.
+
+    In a ``torch.distributed`` group of more than one rank both device
+    routes go multi-process, and every rank must call this on the same
+    torrent: v1 through ``verify_pieces_gpu``, v2 through
+    ``verify_pieces_v2_distributed`` (each rank's round-robin stride,
+    one allgather). ``local=True``, or for v2 an explicit ``indices``
+    subset (rank-local by definition), keeps the rank-local path.
     """
     if info.num_pieces == 0:
         return np.zeros(0, dtype=bool)
@@ -494,6 +522,18 @@ def verify_pieces(
         fn = verify_pieces_v2_cpu if v2 else verify_pieces_cpu
         return fn(storage, info, progress_cb)
     if hasher == "gpu":
-        fn = verify_pieces_v2_gpu if v2 else verify_pieces_gpu
-        return fn(storage, info, progress_cb=progress_cb, **gpu_kwargs)
+        if not v2:
+            return verify_pieces_gpu(storage, info, progress_cb=progress_cb, **gpu_kwargs)
+        from torrent_tpu_torch.parallel.distributed import verify_pieces_v2_distributed, world
+
+        local = gpu_kwargs.pop("local", False)
+        if not local and "indices" not in gpu_kwargs and world()[0] > 1:
+            return verify_pieces_v2_distributed(
+                storage,
+                info,
+                batch_size=gpu_kwargs.get("batch_size", 256),
+                device=gpu_kwargs.get("device"),
+                progress_cb=progress_cb,
+            )
+        return verify_pieces_v2_gpu(storage, info, progress_cb=progress_cb, **gpu_kwargs)
     raise ValueError(f"unknown hasher {hasher!r}")

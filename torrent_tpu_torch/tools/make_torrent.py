@@ -82,7 +82,7 @@ def _iter_pieces(paths: list[str], piece_len: int, pad: bool = False) -> Iterato
 class _Hasher:
     """Batched piece hasher: hashlib or the GPU hash plane."""
 
-    hasher: str = "cpu"
+    hasher: str = "gpu"
     piece_length: int = MIN_PIECE_LEN
     batch_size: int = 256
     device: object = None
@@ -131,7 +131,7 @@ def make_torrent(
     tracker: str,
     comment: str | None = None,
     piece_length: int | None = None,
-    hasher: str = "cpu",
+    hasher: str = "gpu",
     progress: Callable | None = None,
     announce_list: list[list[str]] | None = None,
     private: bool = False,
@@ -153,8 +153,8 @@ def make_torrent(
     (infohashes) and ``collections`` (group names) are BEP 38 hints that
     let downloaders reuse identical local files from related torrents —
     written INSIDE the info dict so the hints are infohash-bound.
-    ``hasher="gpu"`` hashes on ``device`` (None means the GPU; a host
-    without one raises).
+    ``hasher="gpu"`` (the default) hashes on ``device`` (None means the
+    GPU; a host without one raises); ``hasher="cpu"`` is hashlib.
     """
     path = os.fspath(path)
     if not os.path.exists(path):
@@ -225,7 +225,7 @@ def make_torrent(
     if comment:
         top[b"comment"] = comment.encode("utf-8")
     top[b"creation date"] = int(time.time())
-    top[b"created by"] = b"torrent-tpu-torch/0.1"
+    top[b"created by"] = b"torrent-tpu/0.1"
     return bencode(top)
 
 
@@ -239,7 +239,7 @@ def main(argv: list[str] | None = None) -> int:  # pragma: no cover - CLI shell
     parser.add_argument("-o", "--output", help="output .torrent path")
     parser.add_argument("-c", "--comment")
     parser.add_argument("--piece-length", type=int)
-    parser.add_argument("--hasher", choices=("cpu", "gpu"), default="cpu")
+    parser.add_argument("--hasher", choices=("cpu", "gpu"), default="gpu")
     args = parser.parse_args(argv)
 
     def progress(n):

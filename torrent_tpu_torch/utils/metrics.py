@@ -1,11 +1,13 @@
-"""Prometheus renderers for the scheduler slice.
+"""Prometheus renderers for the scheduler and fabric slices.
 
-The counterpart of the reference's ``utils/metrics.py``, carrying only
-the renderers of the two snapshots the scheduler slice produces:
+The counterpart of the reference's ``utils/metrics.py``, carrying the
+renderers of the snapshots the port produces so far:
 ``render_sched_metrics`` (a ``HashPlaneScheduler``'s
-``metrics_snapshot()``) and ``render_control_metrics`` (the autopilot's).
-The session, bridge, serve and swarm renderers come with the serving
-slice.
+``metrics_snapshot()``), ``render_control_metrics`` (the autopilot's),
+``render_fabric_metrics`` (a ``FabricExecutor``'s) and
+``render_fleet_metrics`` (a fleet rollup). Each is a copy of the
+reference's function of the same name. The session, bridge, serve and
+swarm renderers come with the serving slice.
 """
 
 from __future__ import annotations
@@ -208,4 +210,202 @@ def render_control_metrics(snapshot: dict) -> str:
             f'torrent_tpu_control_lane_flush_deadline_seconds{{lane="{_esc(lane)}"}} '
             f"{st.get('deadline', 0.0):.6f}"
         )
+    return "\n".join(lines) + "\n"
+
+
+def render_fabric_metrics(snapshot: dict) -> str:
+    """Prometheus rendering of one process's verify-fabric gauges.
+
+    ``snapshot`` is a ``torrent_tpu_torch.fabric.FabricExecutor.
+    metrics_snapshot()`` dict. Appended to the bridge's ``/metrics``
+    while a fabric job exists, labeled by the process id so a pod-wide
+    scrape distinguishes shards. Defensive against partial snapshots:
+    missing keys render as 0, never a crash mid-scrape."""
+    s = snapshot
+    pid = f'pid="{s.get("pid", 0)}"'
+    states = {"idle": 0, "running": 1, "done": 2, "failed": 3}
+    lines = [
+        "# HELP torrent_tpu_fabric_state Fabric executor state "
+        "(0=idle 1=running 2=done 3=failed)",
+        "# TYPE torrent_tpu_fabric_state gauge",
+        f"torrent_tpu_fabric_state{{{pid}}} {states.get(s.get('state'), 3)}",
+        "# HELP torrent_tpu_fabric_shard_bytes Payload bytes planned onto this process",
+        "# TYPE torrent_tpu_fabric_shard_bytes gauge",
+        f"torrent_tpu_fabric_shard_bytes{{{pid}}} {s.get('shard_bytes', 0)}",
+        "# HELP torrent_tpu_fabric_units Work units by disposition for this process",
+        "# TYPE torrent_tpu_fabric_units gauge",
+        f'torrent_tpu_fabric_units{{{pid},kind="planned"}} {s.get("shard_units", 0)}',
+        f'torrent_tpu_fabric_units{{{pid},kind="done"}} {s.get("units_done", 0)}',
+        f'torrent_tpu_fabric_units{{{pid},kind="adopted"}} {s.get("units_adopted", 0)}',
+        f'torrent_tpu_fabric_units{{{pid},kind="offered"}} {s.get("units_offered", 0)}',
+        f'torrent_tpu_fabric_units{{{pid},kind="rebalanced"}} {s.get("units_rebalanced", 0)}',
+        f'torrent_tpu_fabric_units{{{pid},kind="total"}} {s.get("units_total", 0)}',
+        "# HELP torrent_tpu_fabric_pieces_verified_total Pieces this process verified",
+        "# TYPE torrent_tpu_fabric_pieces_verified_total counter",
+        f"torrent_tpu_fabric_pieces_verified_total{{{pid}}} {s.get('pieces_verified', 0)}",
+        "# HELP torrent_tpu_fabric_inflight_bytes Payload bytes in scheduler futures",
+        "# TYPE torrent_tpu_fabric_inflight_bytes gauge",
+        f"torrent_tpu_fabric_inflight_bytes{{{pid}}} {s.get('inflight_bytes', 0)}",
+        "# HELP torrent_tpu_fabric_heartbeat_age_seconds Seconds since the last successful heartbeat exchange",
+        "# TYPE torrent_tpu_fabric_heartbeat_age_seconds gauge",
+        f"torrent_tpu_fabric_heartbeat_age_seconds{{{pid}}} {s.get('heartbeat_age', 0.0):.3f}",
+        "# HELP torrent_tpu_fabric_sentinel_checks_total Adopted-unit verdicts cross-checked by a sentinel re-hash",
+        "# TYPE torrent_tpu_fabric_sentinel_checks_total counter",
+        f"torrent_tpu_fabric_sentinel_checks_total{{{pid}}} {s.get('sentinel_checks', 0)}",
+        "# HELP torrent_tpu_fabric_sentinel_mismatches_total Foreign verdicts rejected by the sentinel cross-check",
+        "# TYPE torrent_tpu_fabric_sentinel_mismatches_total counter",
+        f"torrent_tpu_fabric_sentinel_mismatches_total{{{pid}}} {s.get('sentinel_mismatches', 0)}",
+        "# HELP torrent_tpu_fabric_audit_checks_total Peer claimed-ok pieces re-hashed by the Byzantine audit sampler",
+        "# TYPE torrent_tpu_fabric_audit_checks_total counter",
+        f"torrent_tpu_fabric_audit_checks_total{{{pid}}} {s.get('audit_checks', 0)}",
+        "# HELP torrent_tpu_fabric_audit_mismatches_total Audited claimed-ok pieces that re-hashed bad (each files conviction evidence)",
+        "# TYPE torrent_tpu_fabric_audit_mismatches_total counter",
+        f"torrent_tpu_fabric_audit_mismatches_total{{{pid}}} {s.get('audit_mismatches', 0)}",
+        "# HELP torrent_tpu_fabric_quorum_convictions_total (publisher, unit) pairs convicted on receipt evidence (structural, audit, evidence, or accusation quorum)",
+        "# TYPE torrent_tpu_fabric_quorum_convictions_total counter",
+        f"torrent_tpu_fabric_quorum_convictions_total{{{pid}}} {s.get('convictions', 0)}",
+        "# HELP torrent_tpu_fabric_quorum_verifies_total Units this process verified as an elected quorum top-up helper",
+        "# TYPE torrent_tpu_fabric_quorum_verifies_total counter",
+        f"torrent_tpu_fabric_quorum_verifies_total{{{pid}}} {s.get('quorum_verifies', 0)}",
+        "# HELP torrent_tpu_fabric_quorum_need Matching receipts required to cover a unit (byzantine_f + 1, clamped to nproc; 1 = the f=0 sentinel fast path)",
+        "# TYPE torrent_tpu_fabric_quorum_need gauge",
+        f"torrent_tpu_fabric_quorum_need{{{pid}}} {s.get('quorum_need', 1)}",
+        "# HELP torrent_tpu_fabric_stragglers_total Units flagged in flight past the straggler threshold",
+        "# TYPE torrent_tpu_fabric_stragglers_total counter",
+        f"torrent_tpu_fabric_stragglers_total{{{pid}}} {s.get('stragglers', 0)}",
+        "# HELP torrent_tpu_fabric_degraded Breaker-stuck degradation flag (unstarted units yielded)",
+        "# TYPE torrent_tpu_fabric_degraded gauge",
+        f"torrent_tpu_fabric_degraded{{{pid}}} {1 if s.get('degraded') else 0}",
+    ]
+    return "\n".join(lines) + "\n"
+
+
+# per-pid series cap for the fleet rendering: a pod bigger than this
+# folds the tail pids into one pid="overflow" aggregate, so /metrics
+# cardinality is bounded no matter how wide the fleet plans
+MAX_FLEET_PIDS = 16
+
+_FLEET_STATUSES = ("ok", "unreported", "degraded", "lapsed", "distrusted")
+
+
+def render_fleet_metrics(rollup: dict) -> str:
+    """Prometheus rendering of a fleet rollup (``obs/fleet.
+    aggregate_fleet`` / ``FabricExecutor.fleet_snapshot``).
+
+    Appended to both ``/metrics`` endpoints while a fleet view exists.
+    Bounded pid cardinality: the first :data:`MAX_FLEET_PIDS` scoreboard
+    rows (pid order) get per-pid series; the rest fold into a single
+    ``pid="overflow"`` aggregate (summed units/rates — a bounded scrape
+    beats per-pid fidelity past the cap). Defensive against partial
+    rollups: missing keys render as 0, never a crash mid-scrape."""
+    s = rollup or {}
+    rows = [r for r in s.get("scoreboard") or [] if isinstance(r, dict)]
+    named = rows[:MAX_FLEET_PIDS]
+    folded = rows[MAX_FLEET_PIDS:]
+    bn = s.get("bottleneck") or {}
+    totals = s.get("totals") or {}
+    status_counts = {st: 0 for st in _FLEET_STATUSES}
+    for r in rows:
+        status_counts[r.get("status") or "unreported"] = (
+            status_counts.get(r.get("status") or "unreported", 0) + 1
+        )
+    lines = [
+        "# HELP torrent_tpu_fleet_processes Processes the fabric plan spans",
+        "# TYPE torrent_tpu_fleet_processes gauge",
+        f"torrent_tpu_fleet_processes {s.get('nproc', 0)}",
+        "# HELP torrent_tpu_fleet_reporting Processes whose obs digest this view holds",
+        "# TYPE torrent_tpu_fleet_reporting gauge",
+        f"torrent_tpu_fleet_reporting {s.get('reporting', 0)}",
+        "# HELP torrent_tpu_fleet_status Scoreboard processes by heartbeat status",
+        "# TYPE torrent_tpu_fleet_status gauge",
+    ]
+    for st in _FLEET_STATUSES:
+        lines.append(
+            f'torrent_tpu_fleet_status{{status="{st}"}} {status_counts.get(st, 0)}'
+        )
+    lines += [
+        "# HELP torrent_tpu_fleet_median_bps Fleet median achieved pipeline bytes/s",
+        "# TYPE torrent_tpu_fleet_median_bps gauge",
+        "torrent_tpu_fleet_median_bps "
+        f"{bn.get('fleet_median_bps') or (totals.get('fleet_bps') or 0.0)}",
+        "# HELP torrent_tpu_fleet_bps Summed achieved pipeline bytes/s across reporting processes",
+        "# TYPE torrent_tpu_fleet_bps gauge",
+        f"torrent_tpu_fleet_bps {totals.get('fleet_bps') or 0.0}",
+        "# HELP torrent_tpu_fleet_limiting_process The fleet's limiting process and its limiting stage (1 = current verdict)",
+        "# TYPE torrent_tpu_fleet_limiting_process gauge",
+    ]
+    if bn.get("stage") is not None:
+        lines.append(
+            "torrent_tpu_fleet_limiting_process"
+            f'{{pid="{bn.get("pid", 0)}",stage="{_esc(str(bn["stage"]))}"}} 1'
+        )
+
+    def _pid_series(name, kind, help_text, get, fold=sum):
+        lines.append(f"# HELP {name} {help_text}")
+        lines.append(f"# TYPE {name} {kind}")
+        for r in named:
+            lines.append(f'{name}{{pid="{r.get("pid", 0)}"}} {get(r)}')
+        if folded:
+            lines.append(
+                f'{name}{{pid="overflow"}} {fold(get(r) for r in folded)}'
+            )
+
+    _pid_series(
+        "torrent_tpu_fleet_pid_achieved_bps", "gauge",
+        "Achieved pipeline bytes/s per process (digest view)",
+        lambda r: r.get("achieved_bps") or 0.0,
+    )
+    _pid_series(
+        "torrent_tpu_fleet_pid_vs_median", "gauge",
+        "Achieved rate vs the fleet median (1.0 = median; stragglers < 0.5)",
+        lambda r: r.get("vs_median") or 0.0,
+        # a ratio doesn't sum: the folded tail reports its WORST member —
+        # the actionable straggler signal an alert on < 0.5 still catches
+        fold=min,
+    )
+    _pid_series(
+        "torrent_tpu_fleet_pid_adoption_debt", "gauge",
+        "Planned-but-undone units of an unavailable process that survivors must absorb",
+        lambda r: r.get("adoption_debt") or 0,
+    )
+    lines.append(
+        "# HELP torrent_tpu_fleet_pid_units Work units by disposition per process"
+    )
+    lines.append("# TYPE torrent_tpu_fleet_pid_units gauge")
+    for kind_name, key in (
+        ("planned", "units_planned"),
+        ("done", "units_done"),
+        ("adopted", "units_adopted"),
+    ):
+        for r in named:
+            lines.append(
+                "torrent_tpu_fleet_pid_units"
+                f'{{pid="{r.get("pid", 0)}",kind="{kind_name}"}} {r.get(key, 0) or 0}'
+            )
+        if folded:
+            lines.append(
+                "torrent_tpu_fleet_pid_units"
+                f'{{pid="overflow",kind="{kind_name}"}} '
+                f"{sum(r.get(key, 0) or 0 for r in folded)}"
+            )
+    lines += [
+        "# HELP torrent_tpu_fleet_digest_dropped_total Heartbeats that shed their obs digest to fit the transport buffer",
+        "# TYPE torrent_tpu_fleet_digest_dropped_total counter",
+        f"torrent_tpu_fleet_digest_dropped_total {s.get('digest_drops', 0)}",
+    ]
+    # fleet-wide SLO budget health: the worst heartbeat-carried burn
+    # rate across reporting processes (absent when no peer armed an
+    # engine — the series simply don't exist)
+    slo = s.get("slo")
+    if isinstance(slo, dict):
+        lines += [
+            "# HELP torrent_tpu_fleet_slo_worst_burn_rate Worst short-window error-budget burn rate across the fleet",
+            "# TYPE torrent_tpu_fleet_slo_worst_burn_rate gauge",
+            "torrent_tpu_fleet_slo_worst_burn_rate"
+            f'{{pid="{slo.get("pid", 0)}",objective="{_esc(str(slo.get("objective", "")))}"}} '
+            f"{slo.get('worst_burn') or 0.0}",
+            "# HELP torrent_tpu_fleet_slo_breaching Reporting processes whose digest carries an active SLO breach",
+            "# TYPE torrent_tpu_fleet_slo_breaching gauge",
+            f"torrent_tpu_fleet_slo_breaching {slo.get('breaching', 0)}",
+        ]
     return "\n".join(lines) + "\n"
