@@ -118,9 +118,43 @@ Phases (any failure exits non-zero, and no phase hides an error):
    Printed: each sub-phase's wall per rank beside the single-process wall
    of the same work (phases 4-5, and the library routes run alone here),
    labelled as two ranks sharing one H100, not multi-card scaling.
+9. The localhost HTTP bridge (``torrent_tpu_torch/bridge``) on the card:
+   ``BridgeServer(hasher="gpu", slo=True, timeline_interval_s=0.25)`` on
+   127.0.0.1 in this process (its ``start()`` builds the sha1 256 KiB and
+   sha256 16 KiB lanes' planes and pinned slots), driven by a separate
+   client process, ``chip_smoke.py --bridge-client RUN ...``, one fresh
+   interpreter a run, which imports no torch: it speaks HTTP over a
+   socket, sends chunked bodies in odd chunk sizes, decodes with the
+   port's device-free bencode codec and checks with hashlib. Run 1:
+   ``/v1/stream/verify`` of phase 4's 2 GiB file (8192 frames of 256 KiB
+   with the torrent's SHA-1s, piece 5000's byte flipped meanwhile); ``ok``
+   must be hashlib's bitfield (valid 8191, failed 0). Run 2:
+   ``/v1/stream/digests`` with ``X-Hash-Algo: sha256`` of the file's
+   first 512 MiB as 32768 frames of 16 KiB (phase 7's ``stream`` shape),
+   equal to hashlib's. Run 3: four ``X-Tenant`` clients at once, each
+   posting 4 ``/v1/verify`` bodies of 64 pieces of 256 KiB (one expected
+   digest wrong in each); the verdicts must be hashlib's, in fewer SHA-1
+   launches than requests. Run 4: ``/v1/fabric/verify`` of phase 7's
+   2 x 1 GiB library, polled on ``/v1/fabric/status`` until ``done``,
+   with every piece valid. Then the operator routes: ``/v1/info``
+   (backend gpu, devices, sha256_backend cuda), ``/metrics`` (scheduler,
+   fabric, fleet, request, SLO and timeline families), ``/v1/pipeline``,
+   ``/v1/fleet``, ``/v1/control``, ``/v1/health`` (200), ``/v1/slo``
+   (attached, no breach), ``/v1/timeline`` (samples) and ``/v1/trace`` of
+   run 1's ``X-Trace-Id``. The launch counters are 0 just before run 1
+   and read after run 4; both kernels must have launched, with no
+   CPU-fallback launch, no launch failure, every breaker closed and the
+   staging pools drained after ``wait_closed()``. Printed beside the
+   card's name and power limit: each run's wall and rate beside the
+   direct call of the same work in this run (phase 4's warm
+   ``verify_pieces``, a scheduler's direct ``submit`` of run 2's leaves,
+   phase 7's ``verify_library_sched``) and hashlib; run 3's requests/s
+   and the p50/p99 bucket bounds of ``torrent_tpu_bridge_request_seconds``;
+   the scheduler's launches, mean fill and flush reasons; and the
+   attributor's bottleneck from ``/v1/pipeline``.
 
 The line before the last is the kernels' JSON record (its ``launches``
-are phases 4 and 5's; phases 7 and 8 print their own); the last line is
+are phases 4 and 5's; phases 7, 8 and 9 print their own); the last line is
 ``{"ok": true, "device": {...}}``. The page cache holds the payload when
 it is rechecked (it was just written), so the end-to-end rates measure
 reads from memory, padding, copies and the kernels, not a disk.
@@ -251,9 +285,11 @@ def sass_opcodes(lib) -> dict:
     return ops
 
 
-def sched_phase(tmp: str, single: str, multi_root: str, multi_info, rng, card: str) -> dict:
+def sched_phase(tmp: str, single: str, multi_root: str, multi_info, rng, card: str) -> tuple:
     """Phase 7: the hash-plane scheduler on the card (see the module
-    docstring). Returns its launches per kernel from the clean runs."""
+    docstring). Returns its launches per kernel from the clean runs, the
+    library's authored torrents, and the library sweep's seconds through
+    the default scheduler and through hashlib (phase 9's baselines)."""
     import asyncio
 
     import torch
@@ -327,6 +363,7 @@ def sched_phase(tmp: str, single: str, multi_root: str, multi_info, rng, card: s
         return snap
 
     walls = {}  # each run's wall, by label
+    sweeps = {}  # each run's library sweep seconds, by label
 
     async def traffic(cfg: SchedulerConfig, label: str, trace_dir: str | None = None) -> tuple[int, int]:
         """One run of the three tenants; under a profiler capture into
@@ -348,6 +385,7 @@ def sched_phase(tmp: str, single: str, multi_root: str, multi_info, rng, card: s
                 stream(sched),
             )
             wall = walls[label] = time.perf_counter() - t0
+            sweeps[label] = lib.seconds
             launches = (sha1_k.launches, sha256_k.launches)
             rep = attribute(led.snapshot(), prev=prev)
             trace = None
@@ -480,7 +518,10 @@ def sched_phase(tmp: str, single: str, multi_root: str, multi_info, rng, card: s
         f"sha1_cuda launches, no cpu fallback"
     )
     torch.cuda.synchronize()
-    return clean, torrents
+    return clean, torrents, {
+        "sched_s": sweeps["default"], "hashlib_s": hashlib_lib_s, "pieces": cpu_lib.n_pieces,
+        "bytes": sum(i.length for i in infos),
+    }
 
 
 DIST_RANKS = 2  # phase 8's rank processes, all on cuda:0 (one card: gloo, not NCCL)
@@ -808,6 +849,484 @@ def dist_phase(tmp: str, torrents: dict, lib_torrents: list, single: dict, card:
         f"s={nccl_s:.3f}) {card}"
     )
     return {r["rank"]: {name: r["sub"][name]["launches"] for name in want} for r in ranks}
+
+
+# ---------------------------------------------------------------- phase 9
+
+BRIDGE_TENANTS = 4  # run 3's concurrent X-Tenant clients
+BRIDGE_WAVES = 4  # requests each tenant posts, one after the other
+BRIDGE_PIECES = 64  # 256 KiB pieces a /v1/verify body
+BRIDGE_FLIP = 5000  # the piece whose byte run 1 flips, as phase 4 does
+BRIDGE_CLIENT_S = 300  # the parent's wait for one client run
+# chunked transfer-encoding chunk sizes, cycled: odd, and smaller and
+# larger than a frame, so frames straddle chunk edges
+CHUNK_SIZES = (1_000_003, 65_537, 7, 262_147, 4_093)
+
+
+_CONNECTS: list = []  # every connect's seconds in this client process
+
+
+class _Http:
+    """A bare HTTP/1.1 client on one socket (phase 9's foreign client:
+    what a Deno ``fetch`` puts on the wire, built here byte by byte)."""
+
+    def __init__(self, port: int):
+        import socket
+
+        t0 = time.perf_counter()
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=BRIDGE_CLIENT_S)
+        # the TCP handshake alone, apart from the request: a connect the
+        # host's stack stalls is not bridge time
+        self.connect_s = time.perf_counter() - t0
+        _CONNECTS.append(self.connect_s)
+        self._sizes = 0
+
+    def head(self, method: str, path: str, headers: dict, length: int | None) -> None:
+        lines = [f"{method} {path} HTTP/1.1", "Host: 127.0.0.1"]
+        lines += [f"{k}: {v}" for k, v in headers.items()]
+        lines.append("Transfer-Encoding: chunked" if length is None else f"Content-Length: {length}")
+        self.sock.sendall(("\r\n".join(lines) + "\r\n\r\n").encode("latin-1"))
+
+    def chunked(self, data) -> None:
+        """Send ``data`` as chunks of the cycled odd sizes."""
+        mv = memoryview(data)
+        pos = 0
+        while pos < len(mv):
+            n = min(CHUNK_SIZES[self._sizes % len(CHUNK_SIZES)], len(mv) - pos)
+            self._sizes += 1
+            self.sock.sendall(b"%x\r\n" % n)
+            self.sock.sendall(mv[pos : pos + n])
+            self.sock.sendall(b"\r\n")
+            pos += n
+
+    def end_chunks(self) -> None:
+        self.sock.sendall(b"0\r\n\r\n")
+
+    def response(self) -> tuple:
+        """``(status, lower-cased headers, body)``; closes the socket."""
+        f = self.sock.makefile("rb")
+        try:
+            status = int(f.readline().split()[1])
+            hdrs = {}
+            while True:
+                line = f.readline()
+                if line in (b"\r\n", b""):
+                    break
+                k, _, v = line.decode("latin-1").partition(":")
+                hdrs[k.strip().lower()] = v.strip()
+            body = f.read(int(hdrs.get("content-length", 0)))
+        finally:
+            f.close()
+            self.sock.close()
+        return status, hdrs, body
+
+
+def _request(port: int, method: str, path: str, headers=None, body: bytes = b"") -> tuple:
+    c = _Http(port)
+    c.head(method, path, headers or {}, len(body))
+    if body:
+        c.sock.sendall(body)
+    return c.response()
+
+
+def bridge_client_main(argv) -> None:
+    """Phase 9's client (``chip_smoke.py --bridge-client RUN ...``): a
+    fresh interpreter that speaks HTTP over a socket to the bridge and
+    hashes with hashlib. It imports no torch: only this script's own
+    module (numpy at its top) and the port's device-free bencode codec.
+    Writes its result as JSON; any check that fails raises."""
+    import argparse
+    import threading
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--bridge-client", dest="run", required=True)
+    ap.add_argument("--port", type=int, required=True)
+    ap.add_argument("--spec", required=True)
+    ap.add_argument("--out", required=True)
+    a = ap.parse_args(argv)
+    sys.path.insert(0, REPO)
+    from torrent_tpu_torch.codec.bencode import bdecode, bencode
+
+    with open(a.spec) as f:
+        spec = json.load(f)
+    with open(spec["torrent"], "rb") as f:
+        info = bdecode(f.read())[b"info"]
+    plen = info[b"piece length"]
+    pieces_blob = info[b"pieces"]
+    expected = [pieces_blob[i : i + 20] for i in range(0, len(pieces_blob), 20)]
+    out: dict = {"run": a.run}
+
+    def read_pieces(first: int, count: int, size: int) -> list:
+        with open(spec["single"], "rb") as f:
+            f.seek(first * size)
+            blob = f.read(count * size)
+        return [blob[i : i + size] for i in range(0, len(blob), size)]
+
+    def stream(path: str, headers: dict, frames) -> tuple:
+        """POST ``frames`` (an iterator of frame blocks) chunked; returns
+        the wall from the first byte sent to the last byte read."""
+        c = _Http(a.port)
+        t0 = time.perf_counter()
+        c.head("POST", path, headers, None)
+        for block in frames:
+            c.chunked(block)
+        c.end_chunks()
+        status, hdrs, body = c.response()
+        return time.perf_counter() - t0, status, hdrs, body
+
+    if a.run == "stream_verify":
+        n = len(expected)
+
+        def frames():
+            for first in range(0, n, 64):
+                block = bytearray()
+                for i, piece in enumerate(read_pieces(first, min(64, n - first), plen)):
+                    block += len(piece).to_bytes(4, "big") + piece + expected[first + i]
+                yield block
+
+        wall, status, hdrs, body = stream(
+            "/v1/stream/verify", {"X-Piece-Length": plen, "X-Trace-Id": "smoke-run1", "X-Tenant": "stream"}, frames()
+        )
+        check(status == 200, f"run 1: status {status}: {body[:200]!r}")
+        rec = bdecode(body)
+        t = time.perf_counter()
+        want = bytearray()
+        for first in range(0, n, 256):
+            for i, piece in enumerate(read_pieces(first, min(256, n - first), plen)):
+                want.append(int(hashlib.sha1(piece).digest() == expected[first + i]))
+        out.update(
+            wall_s=wall, frames=n, bytes=spec["single_bytes"], valid=rec[b"valid"], failed=rec[b"failed"],
+            ok_is_hashlib=rec[b"ok"] == bytes(want), false=[i for i, v in enumerate(want) if not v],
+            trace_id=hdrs.get("x-trace-id"), hashlib_check_s=time.perf_counter() - t,
+        )
+        check(out["ok_is_hashlib"], "run 1: ok differs from hashlib's bitfield")
+        check(rec[b"valid"] == n - 1 and rec[b"failed"] == 0, f"run 1: valid {rec[b'valid']} failed {rec[b'failed']}")
+    elif a.run == "stream_sha256":
+        leaf, n = spec["leaf"], spec["leaves"]
+
+        def frames():
+            for first in range(0, n, 1024):
+                block = bytearray()
+                for x in read_pieces(first, min(1024, n - first), leaf):
+                    block += len(x).to_bytes(4, "big") + x
+                yield block
+
+        wall, status, _, body = stream(
+            "/v1/stream/digests", {"X-Piece-Length": leaf, "X-Hash-Algo": "sha256", "X-Tenant": "stream"}, frames()
+        )
+        check(status == 200, f"run 2: status {status}: {body[:200]!r}")
+        rec = bdecode(body)
+        t = time.perf_counter()
+        want = [hashlib.sha256(x).digest() for x in read_pieces(0, n, leaf)]
+        out.update(
+            wall_s=wall, frames=n, bytes=n * leaf, failed=rec[b"failed"],
+            digests_are_hashlib=rec[b"digests"] == want, hashlib_s=time.perf_counter() - t,
+        )
+        check(out["digests_are_hashlib"] and rec[b"failed"] == 0, "run 2: digests differ from hashlib's")
+    elif a.run == "tenants":
+        bodies, verdicts = {}, {}
+        for k in range(BRIDGE_TENANTS):
+            for w in range(BRIDGE_WAVES):
+                first = (k * BRIDGE_WAVES + w) * BRIDGE_PIECES
+                pieces = read_pieces(first, BRIDGE_PIECES, plen)
+                exp = list(expected[first : first + BRIDGE_PIECES])
+                bad = (k + w) % BRIDGE_PIECES
+                exp[bad] = bytes(b ^ 0xFF for b in exp[bad])
+                bodies[k, w] = bencode({b"pieces": pieces, b"expected": exp})
+                verdicts[k, w] = bytes(int(hashlib.sha1(p).digest() == e) for p, e in zip(pieces, exp))
+        lat, errors = [], []
+
+        def tenant(k):
+            try:
+                for w in range(BRIDGE_WAVES):
+                    t0 = time.perf_counter()
+                    status, _, body = _request(a.port, "POST", "/v1/verify", {"X-Tenant": f"tenant{k}"}, bodies[k, w])
+                    lat.append(time.perf_counter() - t0)
+                    check(status == 200, f"run 3 tenant {k} wave {w}: status {status}: {body[:200]!r}")
+                    check(bdecode(body)[b"ok"] == verdicts[k, w], f"run 3 tenant {k} wave {w}: verdicts differ from hashlib's")
+            except Exception as e:  # reported by the main thread
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=tenant, args=(k,)) for k in range(BRIDGE_TENANTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+        check(not errors, f"run 3: {errors}")
+        lat.sort()
+        out.update(
+            wall_s=wall, requests=len(bodies), pieces=len(bodies) * BRIDGE_PIECES,
+            client_p50_s=lat[len(lat) // 2], client_p99_s=lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+        )
+    elif a.run == "fabric":
+        items = [{b"torrent": t.encode(), b"root": spec["lib_root"].encode()} for t in spec["lib_torrents"]]
+        t0 = time.perf_counter()
+        status, _, body = _request(a.port, "POST", "/v1/fabric/verify", {}, bencode({b"items": items}))
+        check(status == 202, f"run 4: status {status}: {body[:200]!r}")
+        pieces = bdecode(body)[b"pieces"]
+        polls = 0
+        while True:
+            status, _, body = _request(a.port, "GET", "/v1/fabric/status")
+            polls += 1
+            d = bdecode(body)
+            if d[b"state"] != b"running":
+                break
+            check(time.perf_counter() - t0 < BRIDGE_CLIENT_S, "run 4: the fabric job did not finish")
+            time.sleep(0.02)
+        wall = time.perf_counter() - t0
+        check(d[b"state"] == b"done", f"run 4: state {d}")
+        res = d[b"result"]
+        check(res[b"valid"] == res[b"pieces"] == pieces, f"run 4: valid {res[b'valid']} of {res[b'pieces']}")
+        out.update(wall_s=wall, pieces=pieces, valid=res[b"valid"], polls=polls,
+                   units_done=d[b"fabric"][b"units_done"], server_ms=res[b"millis"])
+    elif a.run == "routes":
+        st, _, body = _request(a.port, "GET", "/v1/info")
+        info_rec = bdecode(body)
+        check(st == 200 and info_rec[b"backend"] == b"gpu" and info_rec[b"devices"] >= 1
+              and info_rec[b"sha256_backend"] == b"cuda", f"/v1/info {st} {info_rec}")
+        st, hdrs, body = _request(a.port, "GET", "/metrics")
+        text = body.decode()
+        check(st == 200 and hdrs["content-type"].startswith("text/plain"), f"/metrics {st}")
+        for family in ("torrent_tpu_sched_launches_total", "torrent_tpu_sched_batch_fill_ratio",
+                       "torrent_tpu_fabric_state", "torrent_tpu_fleet_reporting",
+                       "torrent_tpu_bridge_request_seconds", "torrent_tpu_slo_breach",
+                       "torrent_tpu_timeline_samples_total"):
+            check(f"# TYPE {family} " in text, f"/metrics lacks {family}")
+        routes = {}
+        for path in ("/v1/pipeline", "/v1/fleet", "/v1/control", "/v1/health", "/v1/slo", "/v1/timeline",
+                     "/v1/swarm", f"/v1/trace?id={spec['trace_id']}"):
+            st, hdrs, body = _request(a.port, "GET", path)
+            check(st == 200 and hdrs["content-type"] == "application/json", f"{path}: {st} {body[:200]!r}")
+            routes[path.split("?")[0]] = json.loads(body)
+        bn = routes["/v1/pipeline"]["attribution"]["bottleneck"] or {}
+        slo = routes["/v1/slo"]
+        check(slo["attached"] and not slo["report"]["breach_any"], f"/v1/slo {slo}")
+        check(routes["/v1/health"]["ready"], f"/v1/health {routes['/v1/health']}")
+        check(len(routes["/v1/timeline"]["samples"]) >= 1, "/v1/timeline holds no sample")
+        check(routes["/v1/control"]["attached"] is False, "/v1/control: an autopilot is attached")
+        # a 2 GiB stream's trace outgrows the tracer's per-trace span cap:
+        # the tree holds the first spans (the root closes last) and counts
+        # the rest as dropped
+        tree = routes["/v1/trace"]
+        names = set()
+        todo = list(tree["spans"])
+        while todo:
+            node = todo.pop()
+            names.add(node["name"])
+            todo += node["children"]
+        check(tree["trace_id"] == spec["trace_id"] and {"sched.enqueue", "sched.launch"} <= names,
+              f"/v1/trace: {str(tree)[:300]}")
+        out.update(
+            bottleneck=bn.get("stage"), utilization=bn.get("utilization"),
+            fleet_state=routes["/v1/fleet"].get("state"), timeline_samples=len(routes["/v1/timeline"]["samples"]),
+            trace_spans=tree["span_count"], trace_dropped=tree["dropped_spans"], trace_names=sorted(names),
+            health=routes["/v1/health"]["status"],
+            metric_families=len([l for l in text.splitlines() if l.startswith("# TYPE ")]),
+        )
+    else:
+        raise SystemExit(f"unknown bridge client run {a.run!r}")
+    out["connects"] = len(_CONNECTS)
+    out["connect_max_s"] = max(_CONNECTS, default=0.0)
+    out["torch_imported"] = "torch" in sys.modules
+    check(not out["torch_imported"], "the bridge client imported torch")
+    with open(a.out + ".tmp", "w") as f:
+        json.dump(out, f)
+    os.replace(a.out + ".tmp", a.out)
+
+
+def _bucket_quantile(counts: list, q: float) -> float | None:
+    """The upper bound of the log2 bucket holding quantile ``q`` of a
+    ``LogHistogram`` snapshot's counts (None past the top bound)."""
+    from torrent_tpu_torch.obs.hist import BUCKET_BOUNDS
+
+    total = sum(counts)
+    if not total:
+        return None
+    seen = 0
+    for i, c in enumerate(counts):
+        seen += c
+        if seen >= q * total:
+            return BUCKET_BOUNDS[i] if i < len(BUCKET_BOUNDS) else None
+    return None
+
+
+def bridge_phase(tmp: str, single: str, torrent: bytes, lib_torrents: list, baselines: dict, card: str) -> dict:
+    """Phase 9: the bridge on the card, driven by a separate client
+    process (see the module docstring). Returns its launches per kernel."""
+    import asyncio
+
+    import torch
+
+    from torrent_tpu_torch.bridge.service import _H_REQUEST, BridgeServer
+    from torrent_tpu_torch.obs import histograms
+    from torrent_tpu_torch.ops import sha1_cuda, sha256_cuda
+    from torrent_tpu_torch.sched import HashPlaneScheduler
+
+    sha1_k, sha256_k = sha1_cuda.sha1_pieces_cuda, sha256_cuda.sha256_pieces_cuda
+    d = os.path.join(tmp, "bridge")
+    os.makedirs(d, exist_ok=True)
+    spec = {
+        "single": single, "single_bytes": os.path.getsize(single), "torrent": os.path.join(d, "single.torrent"),
+        "leaf": LEAF, "leaves": STREAM_LEAVES, "lib_root": os.path.join(tmp, "library"), "lib_torrents": [],
+        "trace_id": "smoke-run1",
+    }
+    with open(spec["torrent"], "wb") as f:
+        f.write(torrent)
+    for i, raw in enumerate(lib_torrents):
+        spec["lib_torrents"].append(os.path.join(d, f"lib{i}.torrent"))
+        with open(spec["lib_torrents"][-1], "wb") as f:
+            f.write(raw)
+    with open(os.path.join(d, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    launches: dict = {}
+    results: dict = {}
+
+    async def client(run: str, port: int) -> dict:
+        out = os.path.join(d, f"{run}.json")
+        with open(os.path.join(d, f"{run}.log"), "w") as logf:
+            proc = await asyncio.create_subprocess_exec(
+                sys.executable, os.path.abspath(__file__), "--bridge-client", run, "--port", str(port),
+                "--spec", os.path.join(d, "spec.json"), "--out", out, stdout=logf, stderr=subprocess.STDOUT,
+            )
+            try:
+                rc = await asyncio.wait_for(proc.wait(), BRIDGE_CLIENT_S)
+            except asyncio.TimeoutError:
+                proc.kill()
+                await proc.wait()
+                rc = "timeout"
+        if rc != 0:
+            with open(os.path.join(d, f"{run}.log")) as f:
+                log(f"  bridge client {run} (rc {rc}) log tail:\n{f.read()[-4000:]}")
+            raise SmokeFailure(f"phase 9: bridge client {run} exited {rc}")
+        with open(out) as f:
+            return json.load(f)
+
+    async def go():
+        t = time.perf_counter()
+        svc = await BridgeServer(hasher="gpu", slo=True, timeline_interval_s=0.25).start()
+        start_s = time.perf_counter() - t
+        try:
+            # the bridge path: counts 0 just before it, read just after
+            sha1_k.launches = sha256_k.launches = 0
+            for run in ("stream_verify", "stream_sha256", "tenants", "fabric"):
+                before = (sha1_k.launches, sha256_k.launches)
+                if run == "stream_verify":
+                    flip_byte(single, BRIDGE_FLIP * PIECE + 777)
+                try:
+                    results[run] = await client(run, svc.port)
+                finally:
+                    if run == "stream_verify":
+                        flip_byte(single, BRIDGE_FLIP * PIECE + 777)
+                launches[run] = (sha1_k.launches - before[0], sha256_k.launches - before[1])
+            path_launches = (sha1_k.launches, sha256_k.launches)
+            results["routes"] = await client("routes", svc.port)
+            hist = histograms().get(*_H_REQUEST, route="/v1/verify").snapshot()
+        finally:
+            svc.close()
+            await svc.wait_closed()
+        return svc, start_s, path_launches, hist
+
+    svc, start_s, path_launches, hist = asyncio.run(go())
+    snap = svc.sched.metrics_snapshot()
+    reuse = svc.sched.staging_reuse()
+    check(results["stream_verify"]["false"] == [BRIDGE_FLIP], f"run 1: hashlib flags {results['stream_verify']['false']}")
+    check(results["stream_verify"]["trace_id"] == "smoke-run1", "run 1: the X-Trace-Id was not echoed")
+    check(launches["stream_verify"][0] > 0 and launches["stream_sha256"][1] > 0, f"phase 9: launches {launches}")
+    check(0 < launches["tenants"][0] < results["tenants"]["requests"],
+          f"run 3: {launches['tenants'][0]} sha1 launches for {results['tenants']['requests']} requests (no coalescing)")
+    check(launches["fabric"][0] > 0, f"run 4: launches {launches['fabric']}")
+    check(path_launches[0] > 0 and path_launches[1] > 0, f"phase 9: kernels launched {path_launches} times")
+    check(snap["cpu_fallback_launches"] == 0, f"phase 9: {snap['cpu_fallback_launches']} cpu fallback launches")
+    check(snap["launch_failures"] == 0, f"phase 9: {snap['launch_failures']} launch failures")
+    states = {k: b["state"] for k, b in snap["breakers"].items()}
+    check(all(st == "closed" for st in states.values()), f"phase 9: breakers {states}")
+    check(snap["staging"]["outstanding"] == 0, f"phase 9: {snap['staging']['outstanding']} ingest slabs outstanding")
+    check(reuse["outstanding"] == 0 and reuse["early_checkins"] == 0, f"phase 9: staging reuse {reuse}")
+
+    # the direct call of run 2's work: the same leaves through a scheduler
+    # of this process, warmed as the bridge's was
+    with open(single, "rb") as f:
+        blob = f.read(STREAM_LEAVES * LEAF)
+    leaves = [blob[i : i + LEAF] for i in range(0, len(blob), LEAF)]
+    del blob
+
+    async def direct():
+        sched = await HashPlaneScheduler(hasher="gpu").start()
+        await sched.prewarm("sha256", LEAF)
+        chunk = sched.chunk_for(LEAF, "sha256")
+        try:
+            t0 = time.perf_counter()
+            parts = await asyncio.gather(*(
+                sched.submit("direct", leaves[s : s + chunk], algo="sha256", piece_length=LEAF, wait=True)
+                for s in range(0, len(leaves), chunk)
+            ))
+            return time.perf_counter() - t0, [x for part in parts for x in part]
+        finally:
+            await sched.close()
+
+    direct_s, got = asyncio.run(direct())
+    check(got == [hashlib.sha256(x).digest() for x in leaves], "phase 9: the direct sha256 call differs from hashlib")
+    del leaves, got
+    torch.cuda.synchronize()
+
+    r1, r2, r3, r4, r5 = (results[k] for k in ("stream_verify", "stream_sha256", "tenants", "fabric", "routes"))
+    log(
+        f"phase 9: bridge on the card (slo armed, timeline every 0.25 s) served a separate client process "
+        f"(no torch imported): run 1 stream/verify ok == hashlib (piece {BRIDGE_FLIP} flagged, valid "
+        f"{r1['valid']}, failed {r1['failed']}); run 2 stream/digests sha256 == hashlib; run 3 "
+        f"{r3['requests']} /v1/verify requests from {BRIDGE_TENANTS} tenants == hashlib in "
+        f"{launches['tenants'][0]} sha1 launches; run 4 fabric valid {r4['valid']} of {r4['pieces']}; "
+        f"routes: health {r5['health']}, slo no breach, timeline {r5['timeline_samples']} samples, run 1's trace "
+        f"{r5['trace_spans']} spans kept ({r5['trace_dropped']} dropped past the cap) {r5['trace_names']}, "
+        f"{r5['metric_families']} metric families; no cpu fallback, no launch "
+        f"failure, breakers closed, staging drained"
+    )
+    log(f"phase 9: bridge path launches sha1_cuda {path_launches[0]} sha256_cuda {path_launches[1]}; per run {launches}")
+    b = baselines
+    log(
+        f"time: bridge start s={start_s:.3f} (scheduler, prewarmed sha1/256 KiB and sha256/16 KiB lanes, "
+        f"timeline sampler) {card}"
+    )
+    log(
+        f"time: bridge run 1 stream/verify 2 GiB ({r1['frames']} x 256 KiB frames, chunked) wall s={r1['wall_s']:.3f} "
+        f"pieces/s={r1['frames'] / r1['wall_s']:.1f} GiB/s={r1['bytes'] / r1['wall_s'] / 2**30:.3f} "
+        f"sha1_cuda launches={launches['stream_verify'][0]}; direct verify_pieces (phase 4, warm) s={b['v1_s']:.3f} "
+        f"pieces/s={r1['frames'] / b['v1_s']:.1f}; hashlib (phase 4) s={b['v1_hashlib_s']:.3f} "
+        f"pieces/s={r1['frames'] / b['v1_hashlib_s']:.1f} {card}"
+    )
+    log(
+        f"time: bridge run 2 stream/digests sha256 512 MiB ({r2['frames']} x 16 KiB frames, chunked) wall "
+        f"s={r2['wall_s']:.3f} leaves/s={r2['frames'] / r2['wall_s']:.1f} GiB/s={r2['bytes'] / r2['wall_s'] / 2**30:.3f} "
+        f"sha256_cuda launches={launches['stream_sha256'][1]}; direct sched.submit s={direct_s:.3f} "
+        f"leaves/s={r2['frames'] / direct_s:.1f}; hashlib (client) s={r2['hashlib_s']:.3f} "
+        f"leaves/s={r2['frames'] / r2['hashlib_s']:.1f} {card}"
+    )
+    log(
+        f"time: bridge run 3 {BRIDGE_TENANTS} tenants x {BRIDGE_WAVES} waves of /v1/verify ({BRIDGE_PIECES} x 256 KiB) "
+        f"wall s={r3['wall_s']:.3f} requests/s={r3['requests'] / r3['wall_s']:.2f} pieces/s={r3['pieces'] / r3['wall_s']:.1f}; "
+        f"torrent_tpu_bridge_request_seconds route=/v1/verify n={hist[1]} p50<={_bucket_quantile(hist[0], 0.5)} "
+        f"p99<={_bucket_quantile(hist[0], 0.99)} s (log2 bucket bounds) mean s={hist[2] / max(1, hist[1]):.4f}; "
+        f"client p50 s={r3['client_p50_s']:.4f} p99 s={r3['client_p99_s']:.4f} (the slowest TCP connect of its "
+        f"{r3['connects']} s={r3['connect_max_s']:.4f}); sha1_cuda launches="
+        f"{launches['tenants'][0]} for {r3['requests']} requests {card}"
+    )
+    log(
+        f"time: bridge run 4 fabric/verify 2 x 1 GiB ({r4['pieces']} pieces) wall s={r4['wall_s']:.3f} "
+        f"(server s={r4['server_ms'] / 1e3:.3f}, {r4['polls']} polls, slowest connect s={r4['connect_max_s']:.4f}) pieces/s={r4['pieces'] / r4['wall_s']:.1f} "
+        f"GiB/s={b['lib_bytes'] / r4['wall_s'] / 2**30:.3f} sha1_cuda launches={launches['fabric'][0]}; direct "
+        f"verify_library_sched (phase 7) s={b['lib_s']:.3f} pieces/s={r4['pieces'] / b['lib_s']:.1f}; hashlib "
+        f"(phase 7) s={b['lib_hashlib_s']:.3f} pieces/s={r4['pieces'] / b['lib_hashlib_s']:.1f} {card}"
+    )
+    log(
+        f"time: bridge sched launches={snap['launches']} mean_fill={snap['mean_fill']:.4f} "
+        f"flush_reasons={snap['flush_reasons']} lanes="
+        f"{ {k: (v['target'], v['launches'], round(v['mean_fill'], 4)) for k, v in snap['lane_stats'].items()} } "
+        f"staging slots allocated={reuse['slots_allocated']} in s={reuse['alloc_s']:.4f}; /v1/pipeline "
+        f"bottleneck={r5['bottleneck']} (utilization {r5['utilization']}) {card}"
+    )
+    return {"sha1_cuda": path_launches[0], "sha256_cuda": path_launches[1]}
 
 
 def main() -> dict:
@@ -1321,7 +1840,7 @@ def main() -> dict:
         stages_v2 = v2_stages(single, single_v2_info)
 
         # ------------------------------------------------------------ 7
-        sched_launches, lib_torrents = sched_phase(tmp, single, multi_root, infos["multi"], rng, card)
+        sched_launches, lib_torrents, lib_sweep = sched_phase(tmp, single, multi_root, infos["multi"], rng, card)
 
         # ------------------------------------------------------------ 8
         single_walls = {
@@ -1329,6 +1848,13 @@ def main() -> dict:
             "v2": v2_results["single"]["vp_s"], "v2 again": v2_results["single"]["vp_again_s"],
         }
         dist_launches = dist_phase(tmp, torrents, lib_torrents, single_walls, card)
+
+        # ------------------------------------------------------------ 9
+        baselines = {
+            "v1_s": results["single"]["gpu_again_s"], "v1_hashlib_s": results["single"]["cpu_s"],
+            "lib_s": lib_sweep["sched_s"], "lib_hashlib_s": lib_sweep["hashlib_s"], "lib_bytes": lib_sweep["bytes"],
+        }
+        bridge_launches = bridge_phase(tmp, single, torrents["single"], lib_torrents, baselines, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1492,6 +2018,7 @@ def main() -> dict:
         f"sha1_cuda {[v[0] for v in sched_launches.values()]} sha256_cuda {[v[1] for v in sched_launches.values()]}"
     )
     log(f"phase 8: launches per rank and sub-phase {dist_launches}")
+    log(f"phase 9: bridge path launches {bridge_launches}")
     log(json.dumps(kernels))
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "torrent_tpu"))
     check(not leaked, f"the port imported {leaked}")
@@ -1501,6 +2028,9 @@ def main() -> dict:
 if __name__ == "__main__":
     if "--dist-rank" in sys.argv:
         rank_main(sys.argv[1:])  # a rank of phase 8; its parent reads its file
+        sys.exit(0)
+    if "--bridge-client" in sys.argv:
+        bridge_client_main(sys.argv[1:])  # phase 9's client; its parent reads its file
         sys.exit(0)
     try:
         result = main()

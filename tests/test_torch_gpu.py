@@ -682,3 +682,122 @@ def test_nccl_at_world_size_one(built, tmp_path):
     assert rec["count"] == 3 and rec["count_on_card"]
     assert rec["gathered"] == "1001"
     assert rec["peers"] == 0
+
+
+# The localhost HTTP bridge (torrent_tpu_torch/bridge) on the card: a
+# client speaks bencode over a socket, and every hash runs in the kernels
+# through the scheduler's lanes.
+
+
+async def _bridge_http(port, method, path, headers=None, body=b""):
+    import asyncio
+
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    head = [f"{method} {path} HTTP/1.1", "Host: x", f"Content-Length: {len(body)}"]
+    head += [f"{k}: {v}" for k, v in (headers or {}).items()]
+    writer.write(("\r\n".join(head) + "\r\n\r\n").encode() + body)
+    await writer.drain()
+    data = await reader.read()
+    writer.close()
+    head, _, payload = data.partition(b"\r\n\r\n")
+    return int(head.split()[1]), payload
+
+
+def _bridge_frames(pieces, expected=None):
+    return b"".join(
+        len(p).to_bytes(4, "big") + p + (expected[i] if expected is not None else b"")
+        for i, p in enumerate(pieces)
+    )
+
+
+def test_bridge_on_card_matches_hashlib(cuda):
+    """Buffered /v1/verify and both stream routes (sha1, sha256) answer
+    hashlib's verdicts and digests, /v1/info names the card, and the
+    kernels' launch counters rise by at least one launch a route."""
+    from torrent_tpu_torch.bridge import BridgeServer
+    from torrent_tpu_torch.codec.bencode import bdecode
+
+    rng = np.random.default_rng(31)
+    pieces = [rng.bytes(int(n)) for n in rng.integers(1, 16385, size=200)]
+    sha1 = [hashlib.sha1(p).digest() for p in pieces]
+    expected = list(sha1)
+    expected[17] = bytes(20)
+
+    async def go():
+        svc = await BridgeServer(port=0, hasher="gpu").start()
+        try:
+            await svc._probe_task
+            assert svc.sched.device.type == "cuda"
+            st, body = await _bridge_http(svc.port, "GET", "/v1/info")
+            info = bdecode(body)
+            assert st == 200 and info[b"backend"] == b"gpu"
+            assert info[b"sha256_backend"] == b"cuda"
+            assert info[b"devices"] == torch.cuda.device_count() >= 1
+
+            s1 = sha1_pieces_cuda.launches
+            st, body = await _bridge_http(
+                svc.port, "POST", "/v1/verify", {},
+                bencode({b"pieces": pieces, b"expected": expected}),
+            )
+            assert st == 200
+            assert bdecode(body)[b"ok"] == bytes(int(i != 17) for i in range(len(pieces)))
+            assert sha1_pieces_cuda.launches > s1
+
+            s1 = sha1_pieces_cuda.launches
+            st, body = await _bridge_http(
+                svc.port, "POST", "/v1/stream/verify", {"X-Piece-Length": "16384"},
+                _bridge_frames(pieces, expected),
+            )
+            out = bdecode(body)
+            assert st == 200 and out[b"valid"] == len(pieces) - 1 and out[b"failed"] == 0
+            assert sha1_pieces_cuda.launches > s1
+
+            s256 = sha256_pieces_cuda.launches
+            st, body = await _bridge_http(
+                svc.port, "POST", "/v1/stream/digests",
+                {"X-Piece-Length": "16384", "X-Hash-Algo": "sha256"},
+                _bridge_frames(pieces),
+            )
+            assert st == 200
+            assert bdecode(body)[b"digests"] == [hashlib.sha256(p).digest() for p in pieces]
+            assert sha256_pieces_cuda.launches > s256
+            st, _ = await _bridge_http(svc.port, "GET", "/v1/health")
+            assert st == 200
+        finally:
+            svc.close()
+            await svc.wait_closed()
+        _assert_clean(svc.sched)
+
+    _sched_run(go())
+
+
+def test_bridge_start_warms_the_card(cuda):
+    """``start()`` builds the common lanes' planes and their pinned slots
+    before the socket opens; a first request of those geometries
+    allocates no new slot."""
+    from torrent_tpu_torch.bridge import BridgeServer
+    from torrent_tpu_torch.bridge.service import WARM_GEOMETRIES
+    from torrent_tpu_torch.codec.bencode import bdecode
+
+    async def go():
+        svc = await BridgeServer(port=0, hasher="gpu").start()
+        try:
+            depth = svc.sched.config.pipeline_depth
+            lanes = svc.sched._lanes
+            assert len(lanes) == len(WARM_GEOMETRIES)
+            for lane in lanes.values():
+                assert lane.plane is not None
+                assert lane.plane._slots.pinned and lane.plane._slots.allocs == depth
+            pieces = [bytes([i]) * (256 << 10) for i in range(8)]
+            st, body = await _bridge_http(
+                svc.port, "POST", "/v1/digests", {}, bencode({b"pieces": pieces})
+            )
+            assert st == 200
+            assert bdecode(body)[b"digests"] == [hashlib.sha1(p).digest() for p in pieces]
+            assert lanes[("sha1", 256 << 10)].plane._slots.allocs == depth
+        finally:
+            svc.close()
+            await svc.wait_closed()
+        _assert_clean(svc.sched)
+
+    _sched_run(go())

@@ -7,6 +7,11 @@ function, class and method must be the reference's node for node. The
 only differences allowed are the ones listed in ``DIVERGENCES``, by
 qualified name with the reason; an entry whose definition no longer
 differs fails too, so the list stays exact.
+
+The port's ``utils.locks`` stands in for the reference's
+``analysis.sanitizer`` as the module that hands out ``named_lock`` and
+``guard_attrs`` (plain locks and no-op cells until the sanitizer is
+ported), so an import of those names from it reads as the reference's.
 """
 
 from __future__ import annotations
@@ -28,12 +33,23 @@ MIRRORED = (
     "utils/env.py",
     "storage/piece.py",
     "obs/attrib.py",
+    "obs/hist.py",
+    "obs/tracer.py",
+    "obs/ledger.py",
+    "obs/recorder.py",
+    "obs/swarm.py",
+    "obs/timeline.py",
+    "obs/slo.py",
+    "serve_plane/telemetry.py",
 )
 DIVERGENCES = {
-    "obs/fleet.py": {
-        # the SLO plane (obs/slo) comes with the serving slice; the
-        # reference's unarmed engine gives the same None
-        "obs_digest": "no armed SLO engine to summarise",
+    # the lockset sanitizer (analysis/sanitizer.py) is not ported: what
+    # it adds when enabled is absent, as in the reference when it is off
+    "obs/recorder.py": {
+        "FlightRecorder.trigger": "no sanitizer snapshot under a dump's tsan key",
+    },
+    "obs/timeline.py": {
+        "sample_now": "no sanitizer snapshot: a sample's tsan input is None",
     },
 }
 
@@ -59,6 +75,8 @@ class _Normalise(ast.NodeTransformer):
     def visit_ImportFrom(self, node):
         if node.module:
             node.module = node.module.replace("torrent_tpu_torch", "torrent_tpu")
+            if node.module == "torrent_tpu.utils.locks":
+                node.module = "torrent_tpu.analysis.sanitizer"
         return node
 
     def visit_Constant(self, node):

@@ -67,6 +67,14 @@ def test_package_has_the_slice():
         "torrent_tpu_torch.fabric.executor",
         "torrent_tpu_torch.obs.fleet",
         "torrent_tpu_torch.tools.fabric_verify",
+        "torrent_tpu_torch.bridge",
+        "torrent_tpu_torch.bridge.service",
+        "torrent_tpu_torch.bridge.__main__",
+        "torrent_tpu_torch.obs.slo",
+        "torrent_tpu_torch.obs.timeline",
+        "torrent_tpu_torch.obs.swarm",
+        "torrent_tpu_torch.serve_plane",
+        "torrent_tpu_torch.serve_plane.telemetry",
     ):
         assert name in MODULES
     assert (PACKAGE / "csrc" / "sha1.cu").is_file()

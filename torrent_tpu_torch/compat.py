@@ -2,10 +2,11 @@
 
 The system has no weights: what both packages must share is the torrent
 (v1 info dicts, v2 metainfo and v2 session geometry), the staged
-batches, and the scheduler's, autopilot's and fabric's configuration. These helpers take the reference's objects and
-numpy arrays by duck typing, so this package never imports
-``torrent_tpu``; the differential tests use them to feed both packages
-identical input.
+batches, the scheduler's, autopilot's and fabric's configuration, and
+the obs plane's recorded history (a timeline dump). These helpers take
+the reference's objects and numpy arrays by duck typing, so this
+package never imports ``torrent_tpu``; the differential tests use them
+to feed both packages identical input.
 """
 
 from __future__ import annotations
@@ -145,6 +146,28 @@ def fabric_config_from_reference(cfg):
     return FabricConfig(
         **{f.name: getattr(cfg, f.name) for f in dataclasses.fields(FabricConfig)}
     )
+
+
+def timeline_from_reference(snap) -> dict:
+    """This package's timeline snapshot from the reference's
+    ``Timeline.snapshot()``, given as the dict or as its JSON dump (str
+    or bytes, the body of a ``TORRENT_TPU_TIMELINE_DIR`` file).
+
+    Both packages write one sample format (``obs/timeline.py`` is a
+    copy), so the conversion is a JSON round trip: a deep copy that
+    shares nothing with the caller's object. A dump of another format
+    version raises ``ValueError`` rather than replay wrongly."""
+    import json
+
+    from torrent_tpu_torch.obs.timeline import TIMELINE_VERSION
+
+    out = json.loads(snap if isinstance(snap, (str, bytes)) else json.dumps(snap))
+    if not isinstance(out, dict) or out.get("v") != TIMELINE_VERSION:
+        raise ValueError(
+            f"not a version-{TIMELINE_VERSION} timeline snapshot: "
+            f"v={out.get('v') if isinstance(out, dict) else None!r}"
+        )
+    return out
 
 
 def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:

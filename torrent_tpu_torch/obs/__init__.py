@@ -25,12 +25,19 @@ And the **flight recorder** (``obs/recorder``): a bounded ring of
 recent spans + component snapshots, dumped as redacted black-box JSON
 on breaker-open, retry-exhausted failure or fabric distrust.
 
-These are copies of the reference's modules of the same names; its SLO,
-swarm and timeline planes come with the serving slice, and until then
-:func:`render_obs_metrics` composes the families that exist here.
-Everything here locks via ``utils.locks.named_lock`` (obs locks are
-leaves of the lock-order graph) and keeps dumped bytes deterministic:
-monotonic-only timestamps, sorted keys.
+Plus the **history tier** (``obs/timeline``): a bounded ring of
+periodic whole-plane samples taken by an off-loop sampler thread,
+replayable offline; the **SLO engine** (``obs/slo``): declarative
+objectives with multi-window error-budget burn rates over that ring,
+and the readiness verdict behind ``GET /v1/health``; and the **swarm
+wire plane** (``obs/swarm``): the bounded per-peer registry behind
+``GET /v1/swarm`` (zero peers until the session slice feeds it).
+
+These are copies of the reference's modules of the same names, served
+by the bridge (``bridge/service.py``). Everything here locks via
+``utils.locks.named_lock`` (obs locks are leaves of the lock-order
+graph) and keeps dumped bytes deterministic: monotonic-only
+timestamps, sorted keys.
 """
 
 from torrent_tpu_torch.obs.attrib import attribute, format_report
@@ -53,6 +60,24 @@ from torrent_tpu_torch.obs.ledger import (
     render_pipeline_metrics,
 )
 from torrent_tpu_torch.obs.recorder import FlightRecorder, flight_recorder
+from torrent_tpu_torch.obs.swarm import (
+    SwarmTelemetry,
+    build_swarm_snapshot,
+    swarm_telemetry,
+)
+from torrent_tpu_torch.obs.slo import (
+    SloEngine,
+    SloObjective,
+    build_health,
+    evaluate_slo,
+    parse_objectives,
+)
+from torrent_tpu_torch.obs.timeline import (
+    Timeline,
+    TimelineSampler,
+    build_sample,
+    replay_report,
+)
 from torrent_tpu_torch.obs.tracer import (
     Span,
     Tracer,
@@ -69,10 +94,21 @@ __all__ = [
     "LogHistogram",
     "PIPELINE_STAGES",
     "PipelineLedger",
+    "SloEngine",
+    "SloObjective",
     "Span",
+    "SwarmTelemetry",
+    "Timeline",
+    "TimelineSampler",
     "Tracer",
     "aggregate_fleet",
+    "build_swarm_snapshot",
     "attribute",
+    "build_health",
+    "build_sample",
+    "evaluate_slo",
+    "parse_objectives",
+    "replay_report",
     "fabric_trace_id",
     "flight_recorder",
     "format_report",
@@ -84,6 +120,7 @@ __all__ = [
     "pipeline_ledger",
     "render_obs_metrics",
     "render_pipeline_metrics",
+    "swarm_telemetry",
     "tracer",
     "valid_trace_id",
 ]
@@ -92,6 +129,27 @@ __all__ = [
 def render_obs_metrics() -> str:
     """The obs plane's /metrics contribution: every latency-histogram
     family, the pipeline ledger's per-stage series + bottleneck verdict,
-    and the flight-recorder dump counters. The reference also appends
-    its swarm and seeder families, which come with the serving slice."""
-    return histograms().render() + render_pipeline_metrics() + flight_recorder().render_metrics()
+    the swarm wire-plane families (``torrent_tpu_swarm_*`` + bounded
+    ``torrent_tpu_peer_*``), the seeder plane's ``torrent_tpu_serve_*``
+    (only once this process has actually served — tracker-only scrapes
+    stay lean), and the flight-recorder dump counters. Appended by the
+    bridge's ``/metrics`` (and, with the session slice, its
+    ``MetricsServer``)."""
+    from torrent_tpu_torch.serve_plane.telemetry import serve_telemetry
+    from torrent_tpu_torch.utils.metrics import (
+        render_serve_metrics,
+        render_swarm_metrics,
+    )
+
+    serve_obs = serve_telemetry()
+    return (
+        histograms().render()
+        + render_pipeline_metrics()
+        + render_swarm_metrics(swarm_telemetry().snapshot())
+        + (
+            render_serve_metrics(serve_obs.snapshot())
+            if serve_obs.active()
+            else ""
+        )
+        + flight_recorder().render_metrics()
+    )

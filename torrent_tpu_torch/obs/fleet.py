@@ -231,12 +231,15 @@ def obs_digest(
     for short, family in DIGEST_HIST_FAMILIES:
         hist_snaps[short] = reg.family_snapshot(family)
     sched_snap = scheduler.metrics_snapshot() if scheduler is not None else {}
-    # the reference adds its armed SLO engine's summary here; the SLO
-    # plane comes with the serving slice, and an unarmed engine's None
-    # leaves the digest bytes as they are
+    # worst burn-rate / breach flag from the process's armed SLO engine
+    # (obs/slo): None unless objectives were explicitly configured, so
+    # an unarmed run's digest bytes are byte-identical to before
+    from torrent_tpu_torch.obs import slo as _slo
+
+    engine = _slo.armed()
     return build_obs_digest(
         pipeline_ledger().snapshot(), base, hist_snaps, sched_snap, unit,
-        slo=None,
+        slo=engine.summary() if engine is not None else None,
     )
 
 

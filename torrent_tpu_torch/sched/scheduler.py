@@ -1268,6 +1268,30 @@ class HashPlaneScheduler:
         submission maps to roughly one launch."""
         return self._lane_plan(algo, self.bucket_for(piece_length))[1]
 
+    async def prewarm(self, algo: str, piece_length: int) -> None:
+        """On a card, build the lane of this geometry with its plane (the
+        kernel library load) and allocate its pinned staging slots, one
+        per pipelined launch, off the event loop — so a server's first
+        request of this geometry pays none of it. Elsewhere there is
+        nothing to warm (no kernel, no pinned memory) and no lane is
+        made. A build failure raises to the caller."""
+        if not self._on_card():
+            return
+        lane = self._lane(algo, piece_length)
+
+        def build() -> None:
+            with lane.build_lock:
+                if lane.plane is None:
+                    lane.plane = self._build_plane(lane)
+            plane = getattr(lane.plane, "inner", lane.plane)  # FaultyPlane
+            slots = getattr(plane, "_slots", None)
+            if slots is not None:
+                held = [slots.checkout() for _ in range(self.config.pipeline_depth)]
+                for slot in held:
+                    slots.checkin(slot)
+
+        await asyncio.to_thread(build)
+
     # -------------------------------------------- autopilot actuators
     # (sched/control.py — every setter is a no-op-able, bounded seam;
     # with no autopilot attached none of these ever runs and behavior

@@ -4,10 +4,13 @@ The counterpart of the reference's ``utils/metrics.py``, carrying the
 renderers of the snapshots the port produces so far:
 ``render_sched_metrics`` (a ``HashPlaneScheduler``'s
 ``metrics_snapshot()``), ``render_control_metrics`` (the autopilot's),
-``render_fabric_metrics`` (a ``FabricExecutor``'s) and
-``render_fleet_metrics`` (a fleet rollup). Each is a copy of the
-reference's function of the same name. The session, bridge, serve and
-swarm renderers come with the serving slice.
+``render_fabric_metrics`` (a ``FabricExecutor``'s),
+``render_fleet_metrics`` (a fleet rollup), and the bridge's
+``render_timeline_metrics``, ``render_slo_metrics``,
+``render_swarm_metrics`` and ``render_serve_metrics``. Each is a copy
+of the reference's function of the same name. The sanitizer's
+``render_tsan_metrics`` comes with the analysis plane, and the session's
+``render_tracker_metrics`` and ``render_metrics`` with the session.
 """
 
 from __future__ import annotations
@@ -408,4 +411,392 @@ def render_fleet_metrics(rollup: dict) -> str:
             "# TYPE torrent_tpu_fleet_slo_breaching gauge",
             f"torrent_tpu_fleet_slo_breaching {slo.get('breaching', 0)}",
         ]
+    return "\n".join(lines) + "\n"
+
+
+def render_timeline_metrics(snapshot: dict) -> str:
+    """Prometheus rendering of a timeline ring
+    (``obs.timeline.Timeline.snapshot()``; the caller may merge a
+    ``sampler_alive`` bool in). Appended to /metrics only while a
+    timeline is armed — the series simply don't exist otherwise.
+    Defensive against partial snapshots: missing keys render as 0."""
+    s = snapshot or {}
+    # ring fill: prefer the O(1) `fill` counter (Timeline.stats()); a
+    # full snapshot's sample list still works
+    samples = s.get("samples") or []
+    fill = s.get("fill")
+    if fill is None:
+        fill = len(samples) if isinstance(samples, list) else 0
+    lines = [
+        "# HELP torrent_tpu_timeline_samples_total Timeline samples captured since start",
+        "# TYPE torrent_tpu_timeline_samples_total counter",
+        f"torrent_tpu_timeline_samples_total {s.get('seq', 0)}",
+        "# HELP torrent_tpu_timeline_dropped_total Samples that fell off the bounded ring",
+        "# TYPE torrent_tpu_timeline_dropped_total counter",
+        f"torrent_tpu_timeline_dropped_total {s.get('drops', 0)}",
+        "# HELP torrent_tpu_timeline_depth Configured ring depth",
+        "# TYPE torrent_tpu_timeline_depth gauge",
+        f"torrent_tpu_timeline_depth {s.get('depth', 0)}",
+        "# HELP torrent_tpu_timeline_ring_fill Samples currently held in the ring",
+        "# TYPE torrent_tpu_timeline_ring_fill gauge",
+        f"torrent_tpu_timeline_ring_fill {fill}",
+    ]
+    if "sampler_alive" in s:
+        lines += [
+            "# HELP torrent_tpu_timeline_sampler_alive Off-loop sampler thread liveness (0 = readiness problem)",
+            "# TYPE torrent_tpu_timeline_sampler_alive gauge",
+            f"torrent_tpu_timeline_sampler_alive {1 if s.get('sampler_alive') else 0}",
+        ]
+    return "\n".join(lines) + "\n"
+
+
+def render_slo_metrics(report: dict | None) -> str:
+    """Prometheus rendering of an SLO evaluation report
+    (``obs.slo.evaluate_slo`` / ``SloEngine.report()``). Appended to
+    /metrics only while an engine is armed. ``None`` (no report yet)
+    renders headers with no samples — never a crash mid-scrape."""
+    objectives = (report or {}).get("objectives") or {}
+    lines = [
+        "# HELP torrent_tpu_slo_budget_remaining Error budget remaining over the long window (1 = untouched)",
+        "# TYPE torrent_tpu_slo_budget_remaining gauge",
+    ]
+    for name in sorted(objectives):
+        obj = objectives[name] if isinstance(objectives[name], dict) else {}
+        lines.append(
+            f'torrent_tpu_slo_budget_remaining{{objective="{_esc(name)}"}} '
+            f"{obj.get('budget_remaining', 1.0)}"
+        )
+    lines += [
+        "# HELP torrent_tpu_slo_burn_rate Error-budget burn rate by window (1 = budget spent exactly at the window length)",
+        "# TYPE torrent_tpu_slo_burn_rate gauge",
+    ]
+    for name in sorted(objectives):
+        obj = objectives[name] if isinstance(objectives[name], dict) else {}
+        lines.append(
+            f'torrent_tpu_slo_burn_rate{{objective="{_esc(name)}",window="short"}} '
+            f"{obj.get('burn_rate', 0.0)}"
+        )
+        lines.append(
+            f'torrent_tpu_slo_burn_rate{{objective="{_esc(name)}",window="long"}} '
+            f"{obj.get('burn_rate_long', 0.0)}"
+        )
+    lines += [
+        "# HELP torrent_tpu_slo_breach Objective breach state (1 = page-now: fast burn or exhausted budget still erroring)",
+        "# TYPE torrent_tpu_slo_breach gauge",
+    ]
+    for name in sorted(objectives):
+        obj = objectives[name] if isinstance(objectives[name], dict) else {}
+        lines.append(
+            f'torrent_tpu_slo_breach{{objective="{_esc(name)}"}} '
+            f"{1 if obj.get('breach') else 0}"
+        )
+    return "\n".join(lines) + "\n"
+
+
+# per-shard series are bounded: the shard count is operator config, but
+
+
+# peers named individually on a scrape; the snapshot already folds the
+# rest into its own "overflow" aggregate (obs/swarm.TOP_PEERS), so the
+# per-peer family cardinality is bounded no matter how wide the swarm
+_SWARM_TRIGGERS = ("snub_storm", "all_peers_choked", "announce_failure_streak")
+
+# the serve plane's fixed egress fallback matrix and bounded reject
+# reasons; literals here (obs.hist imports this module, so importing
+# serve_plane.telemetry back would cycle) — parity is pinned by a test
+# against serve_plane.telemetry.EGRESS_PATHS/REJECT_REASONS
+_SERVE_PATHS = ("sendfile", "preadv", "copy")
+_SERVE_REJECT_REASONS = ("backpressure", "per_ip", "capacity", "choked")
+
+
+def render_swarm_metrics(snapshot: dict) -> str:
+    """Prometheus rendering of the swarm wire plane
+    (``obs.swarm.SwarmTelemetry.snapshot()`` /
+    ``build_swarm_snapshot``).
+
+    Two families: process-level ``torrent_tpu_swarm_*`` (cumulative
+    totals, live counts, message-kind accounting, flight-trigger
+    counters) and bounded per-peer ``torrent_tpu_peer_*`` — the
+    snapshot's top-K named peers plus one ``peer="overflow"`` fold.
+    Defensive against partial snapshots: missing keys render as 0,
+    never a crash mid-scrape."""
+    s = snapshot or {}
+    counts = s.get("counts") or {}
+    totals = s.get("totals") or {}
+    peers = {
+        k: v for k, v in (s.get("peers") or {}).items() if isinstance(v, dict)
+    }
+    overflow = s.get("overflow") if isinstance(s.get("overflow"), dict) else None
+    lines = [
+        "# HELP torrent_tpu_swarm_peers Peers currently connected across all torrents (telemetry view)",
+        "# TYPE torrent_tpu_swarm_peers gauge",
+        f"torrent_tpu_swarm_peers {counts.get('connected', 0)}",
+        "# HELP torrent_tpu_swarm_peers_snubbed Connected peers currently flagged snubbed",
+        "# TYPE torrent_tpu_swarm_peers_snubbed gauge",
+        f"torrent_tpu_swarm_peers_snubbed {counts.get('snubbed', 0)}",
+        "# HELP torrent_tpu_swarm_peers_choking_us Connected peers currently choking us",
+        "# TYPE torrent_tpu_swarm_peers_choking_us gauge",
+        f"torrent_tpu_swarm_peers_choking_us {counts.get('choking_us', 0)}",
+        "# HELP torrent_tpu_swarm_peers_unchoked Connected peers we are currently unchoking",
+        "# TYPE torrent_tpu_swarm_peers_unchoked gauge",
+        f"torrent_tpu_swarm_peers_unchoked {counts.get('unchoked_by_us', 0)}",
+        "# HELP torrent_tpu_swarm_connections_total Peer connections registered since start",
+        "# TYPE torrent_tpu_swarm_connections_total counter",
+        f"torrent_tpu_swarm_connections_total {totals.get('connections', 0)}",
+        "# HELP torrent_tpu_swarm_bytes_total Wire payload bytes by direction",
+        "# TYPE torrent_tpu_swarm_bytes_total counter",
+        f'torrent_tpu_swarm_bytes_total{{direction="down"}} {totals.get("bytes_down", 0)}',
+        f'torrent_tpu_swarm_bytes_total{{direction="up"}} {totals.get("bytes_up", 0)}',
+        "# HELP torrent_tpu_swarm_blocks_total Payload blocks received",
+        "# TYPE torrent_tpu_swarm_blocks_total counter",
+        f"torrent_tpu_swarm_blocks_total {totals.get('blocks', 0)}",
+        "# HELP torrent_tpu_swarm_snubs_total Peer snub transitions observed",
+        "# TYPE torrent_tpu_swarm_snubs_total counter",
+        f"torrent_tpu_swarm_snubs_total {totals.get('snubs', 0)}",
+        "# HELP torrent_tpu_swarm_endgame_cancels_total Duplicate-block cancels broadcast in endgame",
+        "# TYPE torrent_tpu_swarm_endgame_cancels_total counter",
+        f"torrent_tpu_swarm_endgame_cancels_total {totals.get('endgame_cancels', 0)}",
+        "# HELP torrent_tpu_swarm_rejects_total BEP 6 RejectRequests received",
+        "# TYPE torrent_tpu_swarm_rejects_total counter",
+        f"torrent_tpu_swarm_rejects_total {totals.get('rejects', 0)}",
+        "# HELP torrent_tpu_swarm_announce_total Tracker announces by outcome",
+        "# TYPE torrent_tpu_swarm_announce_total counter",
+        f'torrent_tpu_swarm_announce_total{{result="ok"}} {totals.get("announce_ok", 0)}',
+        f'torrent_tpu_swarm_announce_total{{result="failed"}} {totals.get("announce_failed", 0)}',
+        "# HELP torrent_tpu_swarm_announce_failure_streak Consecutive announce failures right now",
+        "# TYPE torrent_tpu_swarm_announce_failure_streak gauge",
+        f"torrent_tpu_swarm_announce_failure_streak {totals.get('announce_streak', 0)}",
+        "# HELP torrent_tpu_swarm_messages_total Wire messages by kind (bounded kind set)",
+        "# TYPE torrent_tpu_swarm_messages_total counter",
+    ]
+    msgs = s.get("msgs") or {}
+    for kind in sorted(msgs):
+        m = msgs[kind] if isinstance(msgs[kind], dict) else {}
+        lines.append(
+            f'torrent_tpu_swarm_messages_total{{kind="{_esc(str(kind))}"}} '
+            f"{m.get('count', 0)}"
+        )
+    lines.append(
+        "# HELP torrent_tpu_swarm_message_bytes_total Wire message payload bytes by kind"
+    )
+    lines.append("# TYPE torrent_tpu_swarm_message_bytes_total counter")
+    for kind in sorted(msgs):
+        m = msgs[kind] if isinstance(msgs[kind], dict) else {}
+        lines.append(
+            f'torrent_tpu_swarm_message_bytes_total{{kind="{_esc(str(kind))}"}} '
+            f"{m.get('bytes', 0)}"
+        )
+    lines.append(
+        "# HELP torrent_tpu_swarm_flight_triggers_total Swarm flight-recorder dumps by trigger"
+    )
+    lines.append("# TYPE torrent_tpu_swarm_flight_triggers_total counter")
+    triggers = s.get("triggers") or {}
+    for reason in _SWARM_TRIGGERS:
+        lines.append(
+            f'torrent_tpu_swarm_flight_triggers_total{{reason="{reason}"}} '
+            f"{triggers.get(reason, 0)}"
+        )
+
+    def _peer_series(name, kind, help_text, get, overflow_get=None):
+        lines.append(f"# HELP {name} {help_text}")
+        lines.append(f"# TYPE {name} {kind}")
+        for key in sorted(peers):
+            lines.append(f'{name}{{peer="{_esc(str(key))}"}} {get(peers[key])}')
+        if overflow is not None:
+            lines.append(
+                f'{name}{{peer="overflow"}} '
+                f"{(overflow_get or get)(overflow)}"
+            )
+
+    _peer_series(
+        "torrent_tpu_peer_bytes_down_total", "counter",
+        "Payload bytes received from this peer",
+        lambda p: p.get("bytes_down", 0),
+    )
+    _peer_series(
+        "torrent_tpu_peer_bytes_up_total", "counter",
+        "Payload bytes served to this peer",
+        lambda p: p.get("bytes_up", 0),
+    )
+    _peer_series(
+        "torrent_tpu_peer_blocks_total", "counter",
+        "Payload blocks received from this peer",
+        lambda p: p.get("blocks", 0),
+    )
+    from torrent_tpu_torch.obs.hist import BUCKET_BOUNDS as _RTT_BOUNDS
+
+    def _rtt_p99(p):
+        rtt = p.get("block_rtt") or {}
+        if rtt.get("p99_overflow"):
+            # the p99 landed in the +Inf bucket: report the top finite
+            # bound so a `p99 > threshold` alert FIRES — rendering 0
+            # would report best-case latency exactly when latency is
+            # pathological (an Infinity/None inversion)
+            return _RTT_BOUNDS[-1]
+        return rtt.get("p99_s") or 0
+
+    _peer_series(
+        "torrent_tpu_peer_block_rtt_p99_seconds", "gauge",
+        "p99 block round-trip upper bound for this peer (log2 buckets; "
+        "overflow reports the top finite bound)",
+        _rtt_p99,
+    )
+    _peer_series(
+        "torrent_tpu_peer_pipeline_depth", "gauge",
+        "Outstanding block requests to this peer right now",
+        lambda p: (p.get("pipeline") or {}).get("depth", 0),
+        # the overflow fold sums live depths across the folded peers
+        overflow_get=lambda o: o.get("depth", 0),
+    )
+    _peer_series(
+        "torrent_tpu_peer_choking_us", "gauge",
+        "1 while this peer is choking us",
+        lambda p: 1 if (p.get("state") or {}).get("peer_choking") else 0,
+        # a 0/1 flag doesn't fold; the overflow row reports the folded
+        # snubbed-peer count's complement as 0 (alerts key on named rows)
+        overflow_get=lambda o: 0,
+    )
+    _peer_series(
+        "torrent_tpu_peer_snubs_total", "counter",
+        "Snub transitions this peer accumulated",
+        lambda p: p.get("snubs", 0),
+    )
+    return "\n".join(lines) + "\n"
+
+
+def render_serve_metrics(snapshot: dict) -> str:
+    """Prometheus rendering of the seeder plane
+    (``serve_plane.telemetry.ServeTelemetry.snapshot()`` /
+    ``build_serve_snapshot``).
+
+    Process-level ``torrent_tpu_serve_*``: egress bytes/blocks by path
+    (the zero-copy fallback matrix — ``sendfile``/``preadv``/``copy``),
+    reject accounting by reason, choke-round counters plus a real
+    log2-bucket duration histogram, and accept-gate evictions. Bounded
+    per-peer ``torrent_tpu_serve_peer_*``: the snapshot's top-K
+    uploaded-to peers plus one ``peer="overflow"`` fold. Defensive
+    against partial snapshots: missing keys render as 0, never a crash
+    mid-scrape."""
+    s = snapshot if isinstance(snapshot, dict) else {}
+
+    def _d(v):
+        return v if isinstance(v, dict) else {}
+
+    def _n(v):
+        ok = isinstance(v, (int, float)) and not isinstance(v, bool)
+        return v if ok else 0
+
+    counts = _d(s.get("counts"))
+    totals = _d(s.get("totals"))
+    paths = {
+        k: v for k, v in _d(s.get("paths")).items() if isinstance(v, dict)
+    }
+    choke = _d(s.get("choke"))
+    last = _d(choke.get("last"))
+    round_s = _d(choke.get("round_s"))
+    peers = {
+        k: v for k, v in _d(s.get("peers")).items() if isinstance(v, dict)
+    }
+    overflow = s.get("overflow") if isinstance(s.get("overflow"), dict) else None
+    lines = [
+        "# HELP torrent_tpu_serve_peers Peers currently tracked by the serve plane",
+        "# TYPE torrent_tpu_serve_peers gauge",
+        f"torrent_tpu_serve_peers {_n(counts.get('serving'))}",
+        "# HELP torrent_tpu_serve_bytes_total Payload bytes served by egress path",
+        "# TYPE torrent_tpu_serve_bytes_total counter",
+    ]
+    # the fixed fallback-matrix columns always render (a dashboard can
+    # rate() them from first scrape); unexpected extras append sorted
+    path_names = list(_SERVE_PATHS) + sorted(
+        k for k in paths if k not in _SERVE_PATHS
+    )
+    for p in path_names:
+        row = paths.get(p) or {}
+        lines.append(
+            f'torrent_tpu_serve_bytes_total{{path="{_esc(str(p))}"}} '
+            f"{_n(row.get('bytes'))}"
+        )
+    lines.append(
+        "# HELP torrent_tpu_serve_blocks_total Payload blocks served by egress path"
+    )
+    lines.append("# TYPE torrent_tpu_serve_blocks_total counter")
+    for p in path_names:
+        row = paths.get(p) or {}
+        lines.append(
+            f'torrent_tpu_serve_blocks_total{{path="{_esc(str(p))}"}} '
+            f"{_n(row.get('blocks'))}"
+        )
+    lines.append(
+        "# HELP torrent_tpu_serve_rejects_total Serve-side rejections by reason"
+    )
+    lines.append("# TYPE torrent_tpu_serve_rejects_total counter")
+    for reason in _SERVE_REJECT_REASONS:
+        lines.append(
+            f'torrent_tpu_serve_rejects_total{{reason="{reason}"}} '
+            f"{_n(totals.get(f'rejects_{reason}'))}"
+        )
+    lines += [
+        "# HELP torrent_tpu_serve_gate_evictions_total Idle peers evicted by the accept gate",
+        "# TYPE torrent_tpu_serve_gate_evictions_total counter",
+        f"torrent_tpu_serve_gate_evictions_total {_n(totals.get('gate_evictions'))}",
+        "# HELP torrent_tpu_serve_queue_cancels_total Queued requests removed by BEP 3 Cancel before a worker served them",
+        "# TYPE torrent_tpu_serve_queue_cancels_total counter",
+        f"torrent_tpu_serve_queue_cancels_total {_n(totals.get('queue_cancels'))}",
+        "# HELP torrent_tpu_serve_choke_rounds_total Unchoke rounds completed",
+        "# TYPE torrent_tpu_serve_choke_rounds_total counter",
+        f"torrent_tpu_serve_choke_rounds_total {_n(totals.get('rounds'))}",
+        "# HELP torrent_tpu_serve_optimistic_rotations_total Optimistic unchoke slot rotations",
+        "# TYPE torrent_tpu_serve_optimistic_rotations_total counter",
+        f"torrent_tpu_serve_optimistic_rotations_total {_n(totals.get('optimistic_rotations'))}",
+        "# HELP torrent_tpu_serve_unchoked Peers unchoked by the last choke round",
+        "# TYPE torrent_tpu_serve_unchoked gauge",
+        f"torrent_tpu_serve_unchoked {_n(last.get('unchoked'))}",
+        "# HELP torrent_tpu_serve_interested Interested candidates seen by the last choke round",
+        "# TYPE torrent_tpu_serve_interested gauge",
+        f"torrent_tpu_serve_interested {_n(last.get('interested'))}",
+        "# HELP torrent_tpu_serve_choke_round_seconds Choke-round wall duration (log2 buckets)",
+        "# TYPE torrent_tpu_serve_choke_round_seconds histogram",
+    ]
+    from torrent_tpu_torch.obs.hist import BUCKET_BOUNDS as _ROUND_BOUNDS
+
+    bucket_counts = choke.get("round_counts")
+    bucket_counts = bucket_counts if isinstance(bucket_counts, list) else []
+    cum = 0
+    for i, bound in enumerate(_ROUND_BOUNDS):
+        c = bucket_counts[i] if i < len(bucket_counts) else 0
+        cum += c if isinstance(c, int) else 0
+        lines.append(
+            f'torrent_tpu_serve_choke_round_seconds_bucket{{le="{bound:.10g}"}} {cum}'
+        )
+    count = _n(round_s.get("count"))
+    lines.append(
+        f'torrent_tpu_serve_choke_round_seconds_bucket{{le="+Inf"}} {count}'
+    )
+    total_s = _n(round_s.get("mean_s")) * count
+    lines.append(f"torrent_tpu_serve_choke_round_seconds_sum {total_s:.9g}")
+    lines.append(f"torrent_tpu_serve_choke_round_seconds_count {count}")
+
+    def _serve_peer_series(name, kind, help_text, get):
+        lines.append(f"# HELP {name} {help_text}")
+        lines.append(f"# TYPE {name} {kind}")
+        for key in sorted(peers):
+            lines.append(f'{name}{{peer="{_esc(str(key))}"}} {get(peers[key])}')
+        if overflow is not None:
+            lines.append(f'{name}{{peer="overflow"}} {get(overflow)}')
+
+    _serve_peer_series(
+        "torrent_tpu_serve_peer_bytes_total", "counter",
+        "Payload bytes served to this peer",
+        lambda p: _n(p.get("bytes_up")),
+    )
+    _serve_peer_series(
+        "torrent_tpu_serve_peer_blocks_total", "counter",
+        "Payload blocks served to this peer",
+        lambda p: _n(p.get("blocks")),
+    )
+    _serve_peer_series(
+        "torrent_tpu_serve_peer_rejects_total", "counter",
+        "Requests from this peer rejected by the serve plane",
+        lambda p: _n(p.get("rejects")),
+    )
     return "\n".join(lines) + "\n"
