@@ -152,9 +152,38 @@ Phases (any failure exits non-zero, and no phase hides an error):
    and the p50/p99 bucket bounds of ``torrent_tpu_bridge_request_seconds``;
    the scheduler's launches, mean fill and flush reasons; and the
    attributor's bottleneck from ``/v1/pipeline``.
+10. The BitTorrent session (``torrent_tpu_torch/session``, ``net``,
+   ``server``) on the card, at phase 7's widths: library torrent 1 (1 GiB,
+   4096 pieces of 256 KiB) re-announced to the port's in-memory tracker
+   (``run_tracker``, HTTP on 127.0.0.1) and moved over loopback TCP
+   between ``Client``s with the reference's default ``TorrentConfig`` but
+   a 0.15 s choke round and a 1 s announce retry. A ``hasher="gpu"`` seed
+   rechecks the library file through ``GPUVerifier.verify_storage`` (all
+   4096 pieces, SEEDING, SHA-1 launches); a ``hasher="gpu"`` leech
+   downloads it into an empty directory, every finished piece through
+   ``Torrent._verify_batch_device`` (counted by a wrapper this script
+   installs: at least 4096 pieces) with no piece-sized input reaching the
+   session module's ``hashlib``, then a fresh hashlib recheck of its files
+   must be all True, and a batch of its first 256 pieces with one flipped
+   byte must fail that piece alone; a ``hasher="cpu"`` leech downloads the
+   same torrent for the hashlib wall. A restart on the leech's files
+   (``resume=False``, a started ``HashPlaneScheduler(hasher="gpu")`` on
+   the client) rechecks through ``verify_pieces_sched`` as the
+   ``selfheal`` tenant and seeds without a download, with no CPU-fallback
+   launch, no launch failure and the staging drained. Last, phase 5's
+   pure-v2 torrent of the 6 files (1 MiB pieces) moves from a v2 seed to
+   a v2 leech, both ``hasher="gpu"``: the files must be equal, the
+   SHA-256 row and merkle kernels must launch, and the pieces through
+   ``_verify_batch_device_v2`` and the tail pieces folded on the host are
+   counted. Launch counts are 0 just before each sub-path and read just
+   after it. Printed beside the card's name and power limit: the seed's
+   recheck, both download walls and MiB/s, the ingest flushes, pieces a
+   flush and SHA-1 launches, the restart recheck with its scheduler
+   launches, and the v2 transfer's wall. Every client, the scheduler and
+   the tracker are closed, and no task is left pending.
 
 The line before the last is the kernels' JSON record (its ``launches``
-are phases 4 and 5's; phases 7, 8 and 9 print their own); the last line is
+are phases 4 and 5's; phases 7 to 10 print their own); the last line is
 ``{"ok": true, "device": {...}}``. The page cache holds the payload when
 it is rechecked (it was just written), so the end-to-end rates measure
 reads from memory, padding, copies and the kernels, not a disk.
@@ -1329,6 +1358,271 @@ def bridge_phase(tmp: str, single: str, torrent: bytes, lib_torrents: list, base
     return {"sha1_cuda": path_launches[0], "sha256_cuda": path_launches[1]}
 
 
+SESSION_WAIT_S = 600  # the longest a phase-10 transfer may take
+SESSION_LIB = 1  # phase 7's library torrent the swarm moves (1 GiB, 4096 pieces)
+SESSION_FLIP = 77  # the piece of the flipped-byte ingest batch
+SESSION_BATCH = 256  # TorrentConfig.verify_batch_size's default: one ingest batch
+PIECE_SIZED = 16 * 1024  # a hashlib input this long or longer is a piece, not a key
+
+
+def session_phase(tmp: str, lib_torrents: list, v2_meta, card: str) -> dict:
+    """Phase 10: the BitTorrent session on the card (see the module
+    docstring). Returns each sub-path's launches per kernel."""
+    import asyncio
+    import filecmp
+
+    from torrent_tpu_torch.codec.bencode import bdecode, bencode
+    from torrent_tpu_torch.codec.metainfo import parse_metainfo
+    from torrent_tpu_torch.codec.metainfo_v2 import encode_metainfo_v2, parse_metainfo_v2
+    from torrent_tpu_torch.models import merkle
+    from torrent_tpu_torch.ops import sha1_cuda, sha256_cuda
+    from torrent_tpu_torch.parallel.verify import verify_pieces
+    from torrent_tpu_torch.sched import HashPlaneScheduler, SchedulerConfig
+    from torrent_tpu_torch.server.in_memory import run_tracker
+    from torrent_tpu_torch.server.tracker import ServeOptions
+    from torrent_tpu_torch.session import torrent as torrent_mod
+    from torrent_tpu_torch.session.client import Client, ClientConfig
+    from torrent_tpu_torch.session.torrent import Torrent, TorrentConfig, TorrentState
+    from torrent_tpu_torch.storage.storage import FsStorage, Storage
+
+    kernels = {
+        "sha1_cuda": sha1_cuda.sha1_pieces_cuda,
+        "sha256_cuda": sha256_cuda.sha256_pieces_cuda,
+        "sha256_merkle_cuda": sha256_cuda.sha256_merkle_cuda,
+    }
+
+    def reset() -> None:
+        for k in kernels.values():
+            k.launches = 0
+
+    def counts() -> dict:
+        return {name: k.launches for name, k in kernels.items()}
+
+    lib_root = os.path.join(tmp, "library")
+    d = os.path.join(tmp, "session")
+    dirs = {name: os.path.join(d, name) for name in ("gpu", "cpu", "v2")}
+    for p in dirs.values():
+        os.makedirs(p)
+
+    # the smoke's own instruments around the package (never inside it):
+    # pieces and flushes through each ingest verify, per torrent; host
+    # folds of v2 tail pieces; piece-sized hashlib inputs in the session
+    ingest: dict = {}
+    host_folds = [0]
+    real_v1, real_v2 = Torrent._verify_batch_device, Torrent._verify_batch_device_v2
+    real_fold = merkle.piece_root_cpu
+
+    def counting(real):
+        def wrapper(self, pieces, expected):
+            c = ingest.setdefault(id(self), [0, 0, 0.0])
+            c[0] += 1
+            c[1] += len(pieces)
+            t0 = time.perf_counter()
+            try:
+                return real(self, pieces, expected)
+            finally:
+                c[2] += time.perf_counter() - t0
+
+        return wrapper
+
+    def counting_fold(data, pad):
+        host_folds[0] += 1
+        return real_fold(data, pad)
+
+    class CountingHashlib:
+        def __init__(self):
+            self.piece_sized = 0
+
+        def sha1(self, data=b"", *args, **kwargs):
+            if len(data) >= PIECE_SIZED:
+                self.piece_sized += 1
+            return hashlib.sha1(data, *args, **kwargs)
+
+        def __getattr__(self, name):
+            return getattr(hashlib, name)
+
+    # the transfers wait on loopback TCP, not a timer: only the choke
+    # round and the announce retry are shortened, as the session tests do
+    def config(**kw) -> ClientConfig:
+        return ClientConfig(
+            host="127.0.0.1", torrent=TorrentConfig(choke_interval=0.15, announce_retry=1.0), **kw
+        )
+
+    out: dict = {"launches": {}}
+
+    async def go():
+        server, pump = await run_tracker(
+            ServeOptions(http_port=0, udp_port=None, host="127.0.0.1", interval=2)
+        )
+        url = f"http://127.0.0.1:{server.http_port}/announce"
+        raw = bdecode(lib_torrents[SESSION_LIB])
+        raw[b"announce"] = url.encode()
+        meta = parse_metainfo(bencode(raw))
+        n = meta.info.num_pieces
+        check(n == LIB_TORRENT_BYTES // PIECE, f"library torrent {SESSION_LIB} has {n} pieces")
+        clients = []
+
+        async def started(cfg) -> Client:
+            c = Client(cfg)
+            clients.append(c)
+            await c.start()
+            return c
+
+        async def download(client, metainfo, where) -> tuple:
+            t0 = time.perf_counter()
+            torrent = await client.add(metainfo, where)
+            await asyncio.wait_for(torrent.on_complete.wait(), SESSION_WAIT_S)
+            return torrent, time.perf_counter() - t0
+
+        try:
+            # -- seed: a recheck on the card through GPUVerifier.verify_storage
+            seed = await started(config(hasher="gpu"))
+            reset()
+            t0 = time.perf_counter()
+            ts = await seed.add(meta, lib_root)
+            out["seed_recheck_s"] = time.perf_counter() - t0
+            out["launches"]["seed recheck"] = counts()
+            check(ts.state == TorrentState.SEEDING and ts.bitfield.count() == n,
+                  f"seed: {ts.state} with {ts.bitfield.count()}/{n} pieces")
+            check(ts.verifier is not None and ts.verifier.last_result is not None
+                  and ts.verifier.last_result.n_valid == n, "seed: the recheck did not run GPUVerifier.verify_storage")
+            check(out["launches"]["seed recheck"]["sha1_cuda"] > 0, "seed: the recheck launched no SHA-1 kernel")
+
+            # -- leech on the card: every finished piece through the SHA-1 kernel
+            leech = await started(config(hasher="gpu"))
+            proxy = CountingHashlib()
+            Torrent._verify_batch_device = counting(real_v1)
+            torrent_mod.hashlib = proxy
+            reset()
+            try:
+                tl, out["gpu_wall_s"] = await download(leech, meta, dirs["gpu"])
+            finally:
+                Torrent._verify_batch_device = real_v1
+                torrent_mod.hashlib = hashlib
+            out["launches"]["gpu download"] = counts()
+            flushes, pieces, out["gpu_flush_s"] = ingest.get(id(tl), [0, 0, 0.0])
+            out["gpu_flushes"], out["gpu_pieces"] = flushes, pieces
+            check(pieces >= n, f"leech: {pieces} pieces went through _verify_batch_device, fewer than {n}")
+            check(proxy.piece_sized == 0, f"leech: {proxy.piece_sized} piece-sized hashlib inputs in the session")
+            check(out["launches"]["gpu download"]["sha1_cuda"] > 0, "leech: ingest launched no SHA-1 kernel")
+            batch = [tl.storage.read_piece(i) for i in range(SESSION_BATCH)]
+            bad = bytearray(batch[SESSION_FLIP])
+            bad[12_345] ^= 0x10
+            batch[SESSION_FLIP] = bytes(bad)
+            ok = await asyncio.to_thread(tl._verify_batch_device, batch, list(meta.info.pieces[:SESSION_BATCH]))
+            check(list(np.nonzero(~np.asarray(ok))[0]) == [SESSION_FLIP],
+                  f"flipped batch: _verify_batch_device flags {list(np.nonzero(~np.asarray(ok))[0])}")
+            await leech.close()
+            fresh = await asyncio.to_thread(
+                verify_pieces, Storage(FsStorage(dirs["gpu"]), meta.info), meta.info, "cpu"
+            )
+            check(fresh.all(), f"leech: a fresh hashlib recheck fails {int((~fresh).sum())} pieces")
+
+            # -- the same download with hashlib, in the same call
+            cpu_leech = await started(config(hasher="cpu"))
+            tc, out["cpu_wall_s"] = await download(cpu_leech, meta, dirs["cpu"])
+            check(tc.bitfield.complete, "hashlib leech: incomplete")
+            await cpu_leech.close()
+            name = meta.info.name
+            check(filecmp.cmp(os.path.join(dirs["cpu"], name), os.path.join(lib_root, name), shallow=False),
+                  "hashlib leech: bytes differ from the seed's")
+
+            # -- restart on the leech's files: a recheck through the scheduler
+            sched = await HashPlaneScheduler(SchedulerConfig(), hasher="gpu").start()
+            try:
+                restart = await started(config(hasher="gpu", scheduler=sched, resume=False))
+                reset()
+                t0 = time.perf_counter()
+                tr = await restart.add(meta, dirs["gpu"])
+                out["restart_recheck_s"] = time.perf_counter() - t0
+                out["launches"]["restart recheck"] = counts()
+                check(tr.state == TorrentState.SEEDING and tr.bitfield.complete and tr.downloaded == 0,
+                      f"restart: {tr.state}, {tr.bitfield.count()}/{n} pieces, {tr.downloaded} bytes downloaded")
+                snap = sched.metrics_snapshot()
+                out["restart_sched_launches"] = snap["launches"]
+                check(snap["tenants"]["selfheal"]["served_pieces"] == n,
+                      f"restart: the selfheal tenant served {snap['tenants']['selfheal']['served_pieces']} pieces")
+                check(snap["cpu_fallback_launches"] == 0 and snap["launch_failures"] == 0,
+                      f"restart: {snap['cpu_fallback_launches']} cpu fallback launches, {snap['launch_failures']} failures")
+                check(out["launches"]["restart recheck"]["sha1_cuda"] > 0, "restart: no SHA-1 launch")
+                await restart.close()
+            finally:
+                await sched.close()
+            staging = sched.metrics_snapshot()["staging"]["outstanding"]
+            check(staging == 0, f"restart: {staging} staging slabs outstanding after close")
+
+            # -- v2: a BEP 52 seed and leech of phase 5's 6 files at 1 MiB pieces
+            m2 = parse_metainfo_v2(encode_metainfo_v2(v2_meta.info, v2_meta.piece_layers, url))
+            v2_seed = await started(config(hasher="gpu"))
+            t2s = await v2_seed.add(m2, tmp)
+            check(t2s.state == TorrentState.SEEDING, f"v2 seed: {t2s.state}")
+            v2_leech = await started(config(hasher="gpu"))
+            Torrent._verify_batch_device_v2 = counting(real_v2)
+            merkle.piece_root_cpu = counting_fold
+            reset()
+            try:
+                t2l, out["v2_wall_s"] = await download(v2_leech, m2, dirs["v2"])
+            finally:
+                Torrent._verify_batch_device_v2 = real_v2
+                merkle.piece_root_cpu = real_fold
+            out["launches"]["v2 download"] = counts()
+            out["v2_flushes"], out["v2_device_pieces"], out["v2_flush_s"] = ingest.get(id(t2l), [0, 0, 0.0])
+            out["v2_host_pieces"] = host_folds[0]
+            out["v2_pieces"] = t2l.info.num_pieces
+            for rel, _ in MULTI_FILES:
+                check(filecmp.cmp(os.path.join(dirs["v2"], v2_meta.info.name, rel),
+                                  os.path.join(tmp, v2_meta.info.name, rel), shallow=False),
+                      f"v2 leech: {rel} differs from the seed's")
+            check(out["launches"]["v2 download"]["sha256_cuda"] > 0 and out["launches"]["v2 download"]["sha256_merkle_cuda"] > 0,
+                  f"v2 leech: launches {out['launches']['v2 download']}")
+            check(out["v2_device_pieces"] + out["v2_host_pieces"] >= out["v2_pieces"],
+                  f"v2 leech: {out['v2_device_pieces']} + {out['v2_host_pieces']} pieces verified of {out['v2_pieces']}")
+        finally:
+            for c in clients:
+                await c.close()
+            server.close()
+            await asyncio.wait_for(pump, 10)
+        pending = [t for t in asyncio.all_tasks() if t is not asyncio.current_task() and not t.done()]
+        check(not pending, f"tasks left pending: {[t.get_name() for t in pending]}")
+
+    asyncio.run(go())
+    mib = LIB_TORRENT_BYTES / 2**20
+    size = f"{mib:.0f} MiB ({LIB_TORRENT_BYTES // PIECE} x {PIECE >> 10} KiB)"
+    log(
+        f"time: session seed recheck of {size} (GPUVerifier.verify_storage) "
+        f"s={out['seed_recheck_s']:.3f} sha1_cuda launches={out['launches']['seed recheck']['sha1_cuda']} {card}"
+    )
+    log(
+        f"time: session download {size} over loopback TCP gpu wall s={out['gpu_wall_s']:.3f} "
+        f"MiB/s={mib / out['gpu_wall_s']:.1f}; hashlib wall s={out['cpu_wall_s']:.3f} "
+        f"MiB/s={mib / out['cpu_wall_s']:.1f}; gpu/hashlib wall ratio={out['gpu_wall_s'] / out['cpu_wall_s']:.3f}; "
+        f"ingest flushes={out['gpu_flushes']} pieces={out['gpu_pieces']} "
+        f"mean pieces a flush={out['gpu_pieces'] / max(1, out['gpu_flushes']):.2f} "
+        f"seconds in _verify_batch_device={out['gpu_flush_s']:.3f} "
+        f"(ms a flush={1e3 * out['gpu_flush_s'] / max(1, out['gpu_flushes']):.2f}) "
+        f"sha1_cuda launches={out['launches']['gpu download']['sha1_cuda']} {card}"
+    )
+    log(
+        f"time: session restart recheck through the scheduler (selfheal) s={out['restart_recheck_s']:.3f} "
+        f"scheduler launches={out['restart_sched_launches']} "
+        f"sha1_cuda launches={out['launches']['restart recheck']['sha1_cuda']} {card}"
+    )
+    log(
+        f"time: session v2 transfer of {sum(s for _, s in MULTI_FILES)} bytes at 1 MiB pieces wall s={out['v2_wall_s']:.3f} "
+        f"MiB/s={sum(s for _, s in MULTI_FILES) / 2**20 / out['v2_wall_s']:.1f}; {out['v2_pieces']} pieces: "
+        f"{out['v2_device_pieces']} through _verify_batch_device_v2 in {out['v2_flushes']} flushes "
+        f"(ms a flush={1e3 * out['v2_flush_s'] / max(1, out['v2_flushes']):.2f}), "
+        f"{out['v2_host_pieces']} tail pieces folded on the host; launches {out['launches']['v2 download']} {card}"
+    )
+    log(
+        f"phase 10: session seed rechecked {LIB_TORRENT_BYTES // PIECE} pieces on the card, the leech ingested "
+        f"{out['gpu_pieces']} pieces through the SHA-1 kernel (hashlib recheck all True, no piece-sized hashlib "
+        f"input), the flipped batch flagged piece {SESSION_FLIP} alone, the restart rechecked through the "
+        f"scheduler, the v2 leech's files equal the seed's"
+    )
+    return out["launches"]
+
+
 def main() -> dict:
     import torch
 
@@ -1780,6 +2074,8 @@ def main() -> dict:
             if label == "single":
                 single_v2_info = info
                 torrents["v2 single"] = encode_metainfo_v2(gpu_meta.info, gpu_meta.piece_layers)
+            else:
+                v2_multi_meta = gpu_meta  # phase 10's v2 swarm
             # the flat piece index of the flipped byte (files start on
             # piece boundaries in v2's piece space)
             first = 0
@@ -1855,6 +2151,9 @@ def main() -> dict:
             "lib_s": lib_sweep["sched_s"], "lib_hashlib_s": lib_sweep["hashlib_s"], "lib_bytes": lib_sweep["bytes"],
         }
         bridge_launches = bridge_phase(tmp, single, torrents["single"], lib_torrents, baselines, card)
+
+        # ----------------------------------------------------------- 10
+        session_launches = session_phase(tmp, lib_torrents, v2_multi_meta, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2019,6 +2318,7 @@ def main() -> dict:
     )
     log(f"phase 8: launches per rank and sub-phase {dist_launches}")
     log(f"phase 9: bridge path launches {bridge_launches}")
+    log(f"phase 10: session path launches {session_launches}")
     log(json.dumps(kernels))
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "torrent_tpu"))
     check(not leaked, f"the port imported {leaked}")

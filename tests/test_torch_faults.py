@@ -6,9 +6,10 @@ provoked on demand, so every behavior of the fault-tolerance layer —
 launch retry, bisection isolation of a poisoned ticket, the per-lane
 circuit breaker with CPU degradation, and the mark-and-continue recheck
 semantics — is driven deterministically on the CPU through a
-``FaultPlan`` wired into the ``plane_factory`` seam. The bridge's
-503/Retry-After mapping, the session fallback and ``doctor --faults``
-wait for the serving slice (ROADMAP.md).
+``FaultPlan`` wired into the ``plane_factory`` seam, and so is the
+session recheck's local path after a whole-queue rejection.
+``doctor --faults`` waits for the tools slice (ROADMAP.md); the
+bridge's 503/Retry-After mapping is in test_torch_bridge.py.
 
 ``TestDifferential`` runs the same fault-plan specs through the
 reference's device planes (JAX on the CPU) and the port's
@@ -615,6 +616,41 @@ class TestRecheckFailureSemantics:
             assert res.bitfields[2].all(), "torrent 2 lost to torrent 1's poison"
             assert not res.bitfields[1].all()
             assert res.bitfields[1][8:].all(), "only the poisoned chunk may fail"
+
+        run(go())
+
+    def test_session_recheck_falls_back_locally_on_rejection(self):
+        """A whole-queue rejection (scheduler shutting down) drops the
+        session recheck to the local verify path — the torrent still
+        rechecks complete, on the torrent's own hasher (here the plain
+        device path on the CPU)."""
+
+        async def go():
+            from torrent_tpu_torch.codec.metainfo import Metainfo
+            from torrent_tpu_torch.session.torrent import Torrent, TorrentConfig
+
+            info, storage = _build_torrent(200_000, 16384, seed=7, name="heal")
+            sched = HashPlaneScheduler(
+                SchedulerConfig(batch_target=8, flush_deadline=0.05), hasher="cpu"
+            )
+            await sched.close()  # enqueue now raises SchedRejected
+            meta = Metainfo(
+                announce="",
+                info=info,
+                info_hash=hashlib.sha1(b"heal").digest(),
+                raw={},
+            )
+            torrent = Torrent(
+                metainfo=meta,
+                storage=storage,
+                peer_id=b"-TT0001-xxxxxxxxxxxx",
+                port=0,
+                config=dataclasses.replace(
+                    TorrentConfig(device="cpu", verify_batch_size=16), scheduler=sched
+                ),
+            )
+            await torrent.recheck()
+            assert torrent.bitfield.complete
 
         run(go())
 

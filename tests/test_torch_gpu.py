@@ -801,3 +801,97 @@ def test_bridge_start_warms_the_card(cuda):
         _assert_clean(svc.sched)
 
     _sched_run(go())
+
+
+# --------------------------------------------------------------- session
+
+
+def _session_swarm(tmp_path, metainfo, files, storage_root, expect):
+    """Seed ``storage_root`` and leech into an empty directory through
+    the port's tracker and clients, both ``hasher="gpu"`` on the card;
+    returns the launch counts of the leech's download."""
+    import asyncio
+
+    from torrent_tpu_torch.server.in_memory import run_tracker
+    from torrent_tpu_torch.server.tracker import ServeOptions
+    from torrent_tpu_torch.session.client import Client, ClientConfig
+    from torrent_tpu_torch.session.torrent import TorrentConfig
+
+    async def go():
+        server, pump = await run_tracker(
+            ServeOptions(http_port=0, udp_port=None, host="127.0.0.1", interval=1)
+        )
+        meta = metainfo(f"http://127.0.0.1:{server.http_port}/announce")
+        clients = []
+        try:
+            for _ in range(2):
+                c = Client(ClientConfig(
+                    host="127.0.0.1", hasher="gpu",
+                    torrent=TorrentConfig(choke_interval=0.15, announce_retry=1.0),
+                ))
+                await c.start()
+                clients.append(c)
+            seed = await clients[0].add(meta, str(storage_root))
+            assert seed.bitfield.complete
+            for k in expect:
+                k.launches = 0
+            leech_dir = tmp_path / "leech"
+            leech_dir.mkdir()
+            leech = await clients[1].add(meta, str(leech_dir))
+            await asyncio.wait_for(leech.on_complete.wait(), 120)
+            counts = {k.__name__: k.launches for k in expect}
+            for rel, data in files.items():
+                assert (leech_dir / rel).read_bytes() == data, rel
+            return counts
+        finally:
+            for c in clients:
+                await c.close()
+            server.close()
+            await asyncio.wait_for(pump, 5)
+
+    return asyncio.run(asyncio.wait_for(go(), 300))
+
+
+def test_session_swarm_ingest_on_card(cuda, tmp_path):
+    """A v1 seed → leech on cuda:0: the leech verifies every finished
+    piece through the SHA-1 kernel (the client's shared GPUVerifier)."""
+    from torrent_tpu_torch.codec.metainfo import parse_metainfo
+    from torrent_tpu_torch.tools.make_torrent import make_torrent
+
+    rng = np.random.default_rng(81)
+    data = rng.integers(0, 256, 40 * 65536 + 999, dtype=np.uint8).tobytes()
+    src = tmp_path / "seed"
+    src.mkdir()
+    (src / "x.bin").write_bytes(data)
+
+    def meta(url):
+        return parse_metainfo(make_torrent(str(src / "x.bin"), url, piece_length=65536, hasher="gpu"))
+
+    counts = _session_swarm(tmp_path, meta, {"x.bin": data}, src, [sha1_pieces_cuda])
+    assert counts["sha1_pieces_cuda"] > 0, counts
+
+
+def test_session_v2_swarm_on_card(cuda, tmp_path):
+    """A BEP 52 seed → leech on cuda:0: full pieces are verified through
+    the SHA-256 row and merkle kernels (2 leaves a piece at least)."""
+    from torrent_tpu_torch.codec.metainfo_v2 import encode_metainfo_v2, parse_metainfo_v2
+
+    rng = np.random.default_rng(82)
+    files = {
+        "multi/a.bin": rng.integers(0, 256, 9 * 65536 + 5, dtype=np.uint8).tobytes(),
+        "multi/b/c.bin": rng.integers(0, 256, 4 * 65536, dtype=np.uint8).tobytes(),
+    }
+    for rel, blob in files.items():
+        (tmp_path / rel).parent.mkdir(parents=True, exist_ok=True)
+        (tmp_path / rel).write_bytes(blob)
+    built = build_v2(
+        [(tuple(rel.split("/")[1:]), str(tmp_path / rel)) for rel in files], "multi", 65536, hasher="gpu"
+    )
+
+    def meta(url):
+        return parse_metainfo_v2(encode_metainfo_v2(built.info, built.piece_layers, url))
+
+    counts = _session_swarm(
+        tmp_path, meta, files, tmp_path, [sha256_pieces_cuda, sha256_merkle_cuda]
+    )
+    assert counts["sha256_pieces_cuda"] > 0 and counts["sha256_merkle_cuda"] > 0, counts

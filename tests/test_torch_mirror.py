@@ -41,6 +41,29 @@ MIRRORED = (
     "obs/timeline.py",
     "obs/slo.py",
     "serve_plane/telemetry.py",
+    "utils/bitfield.py",
+    "utils/ratelimit.py",
+    "utils/timeout.py",
+    "net/constants.py",
+    "net/types.py",
+    "net/protocol.py",
+    "net/extension.py",
+    "net/mse.py",
+    "net/priority.py",
+    "net/tracker.py",
+    "net/multitracker.py",
+    "server/tracker.py",
+    "server/in_memory.py",
+    "serve_plane/choke.py",
+    "serve_plane/egress.py",
+    "serve_plane/reactor.py",
+    "session/peer.py",
+    "session/resume.py",
+    "session/webseed.py",
+    "models/hashes.py",
+    "storage/storage.py",
+    "session/torrent.py",
+    "session/client.py",
 )
 DIVERGENCES = {
     # the lockset sanitizer (analysis/sanitizer.py) is not ported: what
@@ -50,6 +73,35 @@ DIVERGENCES = {
     },
     "obs/timeline.py": {
         "sample_now": "no sanitizer snapshot: a sample's tsan input is None",
+    },
+    # the hash plane is the GPU's: hasher "gpu" | "cpu" (default "gpu")
+    # on a ``device`` (None means CUDA), and "gpu" never turns into hashlib
+    "session/torrent.py": {
+        "TorrentConfig": 'hasher "gpu" | "cpu", default "gpu"; new field device',
+        "Torrent.recheck": 'hasher "gpu" passes device and batch_size to verify_pieces',
+        "Torrent._verify_piece_data": (
+            'hasher "gpu" with no shared verifier builds its own GPUVerifier '
+            "instead of hashing with hashlib"
+        ),
+        "Torrent._flush_verify_batch": (
+            "a device error reaches every waiter as the exception, never as "
+            "a hashlib verdict"
+        ),
+        "Torrent._verify_batch_device_v2": "leaf and merkle launches take config.device",
+    },
+    "session/client.py": {
+        "ClientConfig": 'hasher "gpu" | "cpu", default "gpu"; new field device',
+        "Client.__init__": (
+            "UPnP, NAT-PMP, DHT, LSD, uTP, BEP 34 DNS prefs, the IP filter and "
+            "the SOCKS5 proxy are not ported: each option raises NotImplementedError"
+        ),
+        "Client.start": 'hasher "gpu" resolves the device before listening: no card, no socket',
+        "Client._verifier_for": "a shared GPUVerifier on config.device",
+        "Client.add": "the derived TorrentConfig carries device",
+        "Client.add_torrent_bytes": "require_signed raises: BEP 35 signing is not ported",
+        "Client.add_magnet": "raises NotImplementedError: magnets are not ported",
+        "Client.resolve_mutable": "raises NotImplementedError: BEP 46 is not ported",
+        "Client.add_mutable_magnet": "raises NotImplementedError: BEP 46 is not ported",
     },
 }
 

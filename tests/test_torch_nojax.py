@@ -75,6 +75,31 @@ def test_package_has_the_slice():
         "torrent_tpu_torch.obs.swarm",
         "torrent_tpu_torch.serve_plane",
         "torrent_tpu_torch.serve_plane.telemetry",
+        "torrent_tpu_torch.serve_plane.choke",
+        "torrent_tpu_torch.serve_plane.egress",
+        "torrent_tpu_torch.serve_plane.reactor",
+        "torrent_tpu_torch.utils.bitfield",
+        "torrent_tpu_torch.utils.ratelimit",
+        "torrent_tpu_torch.utils.timeout",
+        "torrent_tpu_torch.net",
+        "torrent_tpu_torch.net.constants",
+        "torrent_tpu_torch.net.types",
+        "torrent_tpu_torch.net.protocol",
+        "torrent_tpu_torch.net.extension",
+        "torrent_tpu_torch.net.mse",
+        "torrent_tpu_torch.net.priority",
+        "torrent_tpu_torch.net.tracker",
+        "torrent_tpu_torch.net.multitracker",
+        "torrent_tpu_torch.server",
+        "torrent_tpu_torch.server.tracker",
+        "torrent_tpu_torch.server.in_memory",
+        "torrent_tpu_torch.session",
+        "torrent_tpu_torch.session.peer",
+        "torrent_tpu_torch.session.resume",
+        "torrent_tpu_torch.session.webseed",
+        "torrent_tpu_torch.session.torrent",
+        "torrent_tpu_torch.session.client",
+        "torrent_tpu_torch.models.hashes",
     ):
         assert name in MODULES
     assert (PACKAGE / "csrc" / "sha1.cu").is_file()

@@ -7,8 +7,9 @@ plane or the device planes on ``device="cpu"`` (the plain PyTorch SHA-1
 and SHA-256) — cross-request coalescing to ≥0.9 batch fill, deadline
 flush for lone small requests, DRR fairness under a greedy + trickle
 tenant pair, typed load-shed, and CPU-path parity. The cases that need
-the bridge, the session client or ``doctor``, and the pallas
-tile-snapping cases, are not ported (ROADMAP.md lists them).
+``doctor`` and the pallas tile-snapping cases are not ported
+(ROADMAP.md lists them); the session's recheck through the scheduler
+is.
 
 ``TestDifferential`` then drives the reference's scheduler (JAX on the
 CPU, as its own tests run it) and this one with the same seeded
@@ -846,6 +847,48 @@ class TestSchedulerSessions:
             # 144 pieces at target 48: exactly 3 launches, all full
             assert snap["launches"] == 3
             assert snap["flush_reasons"]["full"] == 3
+
+        run(go())
+
+    def test_session_recheck_rides_scheduler_as_selfheal(self):
+        """session/torrent.py resume recheck uses the shared queue as the
+        low-priority 'selfheal' tenant when a scheduler is configured."""
+
+        async def go():
+            import dataclasses
+
+            from torrent_tpu_torch.session.torrent import Torrent, TorrentConfig
+
+            info, storage = _build_torrent(200_000, 16384, seed=7, name="heal")
+            sched = HashPlaneScheduler(
+                SchedulerConfig(batch_target=8, flush_deadline=0.05), hasher="cpu"
+            )
+
+            from torrent_tpu_torch.codec.metainfo import Metainfo
+
+            meta = Metainfo(
+                announce="",
+                info=info,
+                info_hash=hashlib.sha1(b"heal").digest(),
+                raw={},
+            )
+            torrent = Torrent(
+                metainfo=meta,
+                storage=storage,
+                peer_id=b"-TT0001-xxxxxxxxxxxx",
+                port=0,
+                config=dataclasses.replace(
+                    TorrentConfig(hasher="cpu"), scheduler=sched, selfheal_weight=0.25
+                ),
+            )
+            try:
+                await torrent.recheck()
+                assert torrent.bitfield.complete
+                snap = sched.metrics_snapshot()
+                assert snap["tenants"]["selfheal"]["served_pieces"] == info.num_pieces
+                assert snap["tenants"]["selfheal"]["weight"] == 0.25
+            finally:
+                await sched.close()
 
         run(go())
 

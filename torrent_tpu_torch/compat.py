@@ -2,8 +2,10 @@
 
 The system has no weights: what both packages must share is the torrent
 (v1 info dicts, v2 metainfo and v2 session geometry), the staged
-batches, the scheduler's, autopilot's and fabric's configuration, and
-the obs plane's recorded history (a timeline dump). These helpers take
+batches, the scheduler's, autopilot's, fabric's and session's
+configuration, and the obs plane's recorded history (a timeline dump).
+A session's fastresume file needs no helper: both packages read and
+write one format (``session/resume.py`` is a copy). These helpers take
 the reference's objects and numpy arrays by duck typing, so this
 package never imports ``torrent_tpu``; the differential tests use them
 to feed both packages identical input.
@@ -145,6 +147,69 @@ def fabric_config_from_reference(cfg):
 
     return FabricConfig(
         **{f.name: getattr(cfg, f.name) for f in dataclasses.fields(FabricConfig)}
+    )
+
+
+# the reference's hasher names → the port's: its device plane ("tpu")
+# is the port's "gpu"; hashlib is "cpu" in both
+HASHER_FROM_REFERENCE = {"tpu": "gpu", "cpu": "cpu"}
+
+
+def _hasher_from_reference(name: str) -> str:
+    try:
+        return HASHER_FROM_REFERENCE[name]
+    except KeyError:
+        raise ValueError(f"unknown reference hasher {name!r}") from None
+
+
+def _no_live_scheduler(cfg) -> None:
+    if getattr(cfg, "scheduler", None) is not None:
+        raise ValueError(
+            "a live scheduler cannot cross packages: set the port's own "
+            "sched.HashPlaneScheduler on the converted config"
+        )
+
+
+def torrent_config_from_reference(cfg, device=None):
+    """This package's ``session.torrent.TorrentConfig`` from the
+    reference's, field by field, with ``hasher`` mapped ("tpu" → "gpu")
+    and ``device`` (which the reference has not) given here: None means
+    CUDA. A reference ``scheduler`` is refused with ``ValueError``."""
+    import dataclasses
+
+    from torrent_tpu_torch.session.torrent import TorrentConfig
+
+    _no_live_scheduler(cfg)
+    fields = {
+        f.name: getattr(cfg, f.name)
+        for f in dataclasses.fields(TorrentConfig)
+        if f.name != "device"
+    }
+    fields["hasher"] = _hasher_from_reference(cfg.hasher)
+    return TorrentConfig(**fields, device=device)
+
+
+def client_config_from_reference(cfg, device=None):
+    """This package's ``session.client.ClientConfig`` from the
+    reference's, field by field: ``hasher`` is mapped, the nested
+    ``torrent`` config goes through :func:`torrent_config_from_reference`
+    and ``device`` is given here. A reference ``scheduler`` (on the
+    client or its torrent config) is refused with ``ValueError``."""
+    import dataclasses
+
+    from torrent_tpu_torch.session.client import ClientConfig
+
+    _no_live_scheduler(cfg)
+    fields = {
+        f.name: getattr(cfg, f.name)
+        for f in dataclasses.fields(ClientConfig)
+        if f.name not in ("device", "torrent")
+    }
+    fields["hasher"] = _hasher_from_reference(cfg.hasher)
+    return ClientConfig(
+        **fields,
+        device=device,
+        torrent=torrent_config_from_reference(cfg.torrent, device),
     )
 
 

@@ -8,10 +8,11 @@ never load a half-written file.
 
 Two libraries are built here:
 
-- the host pread pool (``io_engine.cpp``, g++). A missing toolchain
-  means ``load()`` returns None and ``Storage.read_batch`` takes its
-  pure-Python read path: this is host IO, and both paths give the same
-  bytes;
+- the host engine (``io_engine.cpp``, g++): the pread pool and the RC4
+  cipher of the peer wire's MSE/PE handshake. A missing toolchain means
+  ``load()`` returns None, ``Storage.read_batch`` takes its pure-Python
+  read path and ``net/mse.py`` its pure-Python RC4: this is host code,
+  and both paths give the same bytes;
 - the CUDA kernels (``csrc/sha1.cu`` and ``csrc/sha256.cu``, built by
   ``ops/sha1_cuda.py`` and ``ops/sha256_cuda.py`` through
   :func:`build_cuda`). There a missing ``nvcc`` or a failed build
@@ -120,7 +121,7 @@ def build(force: bool = False) -> pathlib.Path | None:
 
 
 def load():
-    """ctypes handle to the built pread pool, or None if unavailable."""
+    """ctypes handle to the built host engine, or None if unavailable."""
     import ctypes
 
     path = build()
@@ -151,6 +152,19 @@ def load():
         ctypes.c_int64,
         ctypes.POINTER(ctypes.c_uint8),
         ctypes.POINTER(ctypes.c_int32),
+    ]
+    lib.tt_rc4_init.restype = None
+    lib.tt_rc4_init.argtypes = [
+        ctypes.c_void_p,
+        ctypes.c_char_p,
+        ctypes.c_int32,
+    ]
+    lib.tt_rc4_crypt.restype = None
+    # buf is mutated in place (keystream xor), hence void* not char*
+    lib.tt_rc4_crypt.argtypes = [
+        ctypes.c_void_p,
+        ctypes.c_void_p,
+        ctypes.c_int64,
     ]
     return lib
 

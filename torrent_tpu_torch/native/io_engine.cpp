@@ -1,4 +1,5 @@
-// Native batched-read engine for the hash plane's disk stage.
+// Native batched-read engine for the hash plane's disk stage, and the
+// RC4 stream cipher of the peer wire's MSE/PE handshake (net/mse.py).
 //
 // The reference's storage path is one async seek/read per block
 // (storage.ts:150-172 fsStorage.get); the Python port of that is fine
@@ -17,8 +18,6 @@
 //
 // Exposed as a tiny C ABI for ctypes — no pybind11 in this image.
 // Build: torrent_tpu_torch/native/build.py (g++ -O2 -shared -fPIC -pthread).
-// A copy of torrent_tpu/native/io_engine.cpp without its RC4 routines,
-// which serve the peer wire protocol, not the hash plane.
 
 #include <atomic>
 #include <cerrno>
@@ -206,6 +205,45 @@ int tt_io_read_batch(void* engine, const char** paths, int32_t n_files,
   for (int fd : fds)
     if (fd >= 0) close(fd);
   return rc;
+}
+
+// ------------------------------------------------------------------ RC4
+//
+// Stream cipher for MSE/PE peer-connection obfuscation (net/mse.py).
+// RC4 is inherently sequential (one byte of state update per keystream
+// byte) so it cannot ride the GPU hash plane; a C loop runs ~100x the
+// pure-Python fallback and keeps encrypted peer connections off the
+// session's critical path. State is a caller-owned 258-byte buffer
+// (256-byte permutation + i + j) so the library stays allocation-free.
+
+void tt_rc4_init(uint8_t* state, const uint8_t* key, int32_t keylen) {
+  if (keylen <= 0) return;  // caller validates; never SIGFPE on i % 0
+  uint8_t* s = state;
+  for (int i = 0; i < 256; ++i) s[i] = static_cast<uint8_t>(i);
+  uint8_t j = 0;
+  for (int i = 0; i < 256; ++i) {
+    j = static_cast<uint8_t>(j + s[i] + key[i % keylen]);
+    uint8_t t = s[i];
+    s[i] = s[j];
+    s[j] = t;
+  }
+  state[256] = 0;  // i
+  state[257] = 0;  // j
+}
+
+void tt_rc4_crypt(uint8_t* state, uint8_t* buf, int64_t n) {
+  uint8_t* s = state;
+  uint8_t i = state[256], j = state[257];
+  for (int64_t k = 0; k < n; ++k) {
+    i = static_cast<uint8_t>(i + 1);
+    j = static_cast<uint8_t>(j + s[i]);
+    uint8_t t = s[i];
+    s[i] = s[j];
+    s[j] = t;
+    buf[k] ^= s[static_cast<uint8_t>(s[i] + s[j])];
+  }
+  state[256] = i;
+  state[257] = j;
 }
 
 }  // extern "C"

@@ -1,14 +1,26 @@
-"""The crowd seeder plane's telemetry, ahead of the rest of the plane.
+"""The crowd seeder plane: connection-scaled serving for one process.
 
-The reference's ``serve_plane`` package also holds the reactor pool,
-the zero-copy egress engine and the upload choke economics; those come
-with the session slice. What is here already is :mod:`.telemetry`, the
-bounded serve-side registry and its pure
-:func:`~torrent_tpu_torch.serve_plane.telemetry.build_serve_snapshot`
-rollup behind the ``torrent_tpu_serve_*`` metrics, which the bridge's
-``/metrics`` and ``/v1/swarm`` read.
+* :mod:`.reactor` — a bounded reactor pool multiplexing peer request
+  queues: per-peer FIFO backpressure, batch draining, cancel-by-predicate
+  for BEP 6 rejects.
+* :mod:`.egress` — zero-copy block egress: ``os.sendfile`` when the
+  requested span maps contiguously into one real file, pooled ``preadv``
+  staging when the fd is there but sendfile is not, buffered copy
+  otherwise — with a per-connection fallback matrix recording which path
+  served every block.
+* :mod:`.choke` — upload choke economics on the scheduler's DRR
+  byte-weight idiom: deficits accrue per round by reciprocation weight,
+  egress spends them, a seeded optimistic slot rotates, and starvation
+  is structurally impossible (a choked candidate accrues every round).
+* :mod:`.telemetry` — the bounded serve-side registry + the pure
+  :func:`~torrent_tpu_torch.serve_plane.telemetry.build_serve_snapshot`
+  rollup behind ``torrent_tpu_serve_*`` metrics, which the bridge's
+  ``/metrics`` and ``/v1/swarm`` read too.
 """
 
+from torrent_tpu_torch.serve_plane.choke import ChokeEconomics, RoundResult
+from torrent_tpu_torch.serve_plane.egress import EgressEngine
+from torrent_tpu_torch.serve_plane.reactor import ReactorPool
 from torrent_tpu_torch.serve_plane.telemetry import (
     EGRESS_PATHS,
     ServeTelemetry,
@@ -18,6 +30,10 @@ from torrent_tpu_torch.serve_plane.telemetry import (
 
 __all__ = [
     "EGRESS_PATHS",
+    "ChokeEconomics",
+    "EgressEngine",
+    "ReactorPool",
+    "RoundResult",
     "ServeTelemetry",
     "build_serve_snapshot",
     "serve_telemetry",

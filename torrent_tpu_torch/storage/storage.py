@@ -5,31 +5,29 @@
 walking the metainfo file table (storage.ts:89-137 ``findAndDo``) — a piece
 may span several files in a multi-file torrent.
 
-``read_batch`` reads many pieces into one preallocated numpy buffer,
-shaped for the verify plane ``[n_pieces, piece_length]``. Missing/short
-files zero-fill (a zero-filled piece simply fails its SHA1 check, which is
-exactly the resume-recheck semantics).
+New vs the reference (BASELINE requirement): ``read_batch`` — contiguous
+multi-piece reads into one preallocated numpy buffer, shaped for the GPU
+verify plane ``[n_pieces, piece_length]``. Missing/short files zero-fill
+(a zero-filled piece simply fails its SHA1 check, which is exactly the
+resume-recheck semantics).
 
-This is the verify-plane subset of ``torrent_tpu/storage/storage.py``,
-with its BEP 52 piece-aligned file table (``info.piece_aligned``, the v2
-session geometry of ``session/v2.py``): the partfile routing of
-deselected files, zero-copy egress handles and the written-map resume
-helpers belong to the session slice. Both read paths account to the
-pipeline ledger's "read" stage (``obs/ledger.py``): the Python walk here,
-the native pread pool in ``native/io_engine.py``.
+Also fixed vs the reference (SURVEY §8.15): duplicate-block suppression
+keys by exact byte offset (not possibly-fractional ``offset/BLOCK_SIZE``)
+and the written map can be rebuilt from a verified bitfield on resume.
 """
 
 from __future__ import annotations
 
-import errno
+import hashlib
 import os
+
+from torrent_tpu_torch.utils.locks import named_lock
 from typing import Iterator, Protocol
 
 import numpy as np
 
 from torrent_tpu_torch.codec.metainfo import InfoDict
-from torrent_tpu_torch.storage.piece import piece_length
-from torrent_tpu_torch.utils.locks import named_lock
+from torrent_tpu_torch.storage.piece import BLOCK_SIZE, piece_length
 
 
 class StorageError(Exception):
@@ -55,15 +53,33 @@ class StorageMethod(Protocol):
 class Storage:
     """Maps torrent-global offsets onto the metainfo file table."""
 
+    def set_unwanted_files(self, file_indices) -> None:
+        """Partfile routing for deselected files: their boundary-piece
+        spill goes to a hidden mirror instead of visible stub files.
+        No-op on backends without partfile support (MemoryStorage)."""
+        setter = getattr(self.method, "set_unwanted", None)
+        if setter is None:
+            return
+        unwanted_idx = set(file_indices)
+        paths = set()
+        all_paths = []
+        for i, (path, _, _) in enumerate(self._files):
+            if path is None:
+                continue
+            all_paths.append(path)
+            if i in unwanted_idx:
+                paths.add(path)
+        setter(paths, all_paths)
+
     def __init__(self, method: StorageMethod, info: InfoDict):
         self.method = method
         self.info = info
         # (path, global_start, length) per file; single-file torrents store
         # at [name], multi-file at [name, *entry.path] (storage.ts:41-48).
+        self._files: list[tuple[tuple[str, ...], int, int]] = []
         # BEP 47 pad files are VIRTUAL zero spans: they occupy piece space
         # (that's their whole purpose) but never touch disk — their table
         # entries carry path=None and get()/set() zero-fill/skip them.
-        self._files: list[tuple[tuple[str, ...] | None, int, int]] = []
         if info.files is None:
             self._files.append(((info.name,), 0, info.length))
         elif getattr(info, "piece_aligned", False):
@@ -78,7 +94,11 @@ class Storage:
         else:
             pos = 0
             for entry in info.files:
-                path = None if entry.pad else (info.name, *entry.path)
+                path = (
+                    None
+                    if getattr(entry, "pad", False)
+                    else (info.name, *entry.path)
+                )
                 self._files.append((path, pos, entry.length))
                 pos += entry.length
         # Exact byte offsets of blocks already written (duplicate-write
@@ -110,6 +130,27 @@ class Storage:
             chunk = min(offset + length, end) - seg_start
             yield path, seg_start - start, chunk
             remaining -= chunk
+
+    def contiguous_span(self, offset: int, length: int) -> tuple[tuple[str, ...], int] | None:
+        """Resolve ``[offset, offset+length)`` to ``(path, file_offset)``
+        when the whole range lives inside ONE real file.
+
+        ``None`` for anything else — pad spans, file boundaries, bad
+        ranges — which is the serve plane's signal to take the buffered
+        copy path instead of zero-copy egress.
+        """
+        if length <= 0:
+            return None
+        try:
+            segs = list(self.segments(offset, length))
+        except StorageError:
+            return None
+        if len(segs) != 1:
+            return None
+        path, foff, chunk = segs[0]
+        if path is None or chunk != length:
+            return None
+        return path, foff
 
     # ------------------------------------------------------------ get/set
 
@@ -150,6 +191,28 @@ class Storage:
             if path is not None  # pads have no on-disk presence to check
         )
 
+    def mark_pieces_written(self, piece_indices) -> None:
+        """Rebuild the written map from verified pieces (resume path)."""
+        with self._lock:
+            for idx in piece_indices:
+                plen = piece_length(self.info, idx)
+                base = idx * self.info.piece_length
+                for boff in range(0, plen, BLOCK_SIZE):
+                    self._written.add(base + boff)
+
+    def unmark_piece_written(self, index: int) -> None:
+        """Drop duplicate-write suppression for one piece.
+
+        The piece-loss path (BEP 54 self-healing) re-downloads a piece
+        whose blocks are already in the written map — without this the
+        replacement bytes verify in memory, ``set`` returns False for
+        every block, and the disk keeps the corrupt/missing data."""
+        with self._lock:
+            plen = piece_length(self.info, index)
+            base = index * self.info.piece_length
+            for boff in range(0, plen, BLOCK_SIZE):
+                self._written.discard(base + boff)
+
     # ------------------------------------------------------------ batch IO
 
     def read_piece(self, index: int) -> bytes:
@@ -171,12 +234,14 @@ class Storage:
 
         ``row_status``: optional caller-owned ``bool[n]``. When given,
         per-row read success lands there (False = any segment of the row
-        was missing, short, or torn). ``zero_fill=False`` skips the
-        upfront memset of a caller-provided ``out`` (rows may then hold
-        stale/partial bytes wherever ``row_status`` is False; only pass it
-        together with ``row_status``). BEP 47 pad spans are always written
-        as zeros explicitly, so dirty reused buffers can't corrupt
-        pad-covering pieces.
+        was missing, short, or torn) — the zero-copy ingest path uses it
+        to turn failed rows into ``nblocks=0`` sentinels instead of
+        relying on zero-fill hash mismatches. ``zero_fill=False`` skips
+        the upfront memset of a caller-provided ``out`` (rows may then
+        hold stale/partial bytes wherever ``row_status`` is False; only
+        pass it together with ``row_status``). BEP 47 pad spans are
+        always written as zeros explicitly, so dirty reused buffers
+        can't corrupt pad-covering pieces.
         """
         indices = list(indices)
         n = len(indices)
@@ -208,9 +273,9 @@ class Storage:
                 base = idx * plen_max
                 for path, foff, chunk in self.segments(base, plen):
                     if path is None:
-                        # pad span: zeros by definition — written explicitly
-                        # because a zero_fill=False caller (reused staging
-                        # buffer) may hand us dirty rows
+                        # pad span: zeros by definition — written
+                        # explicitly because a zero_fill=False caller
+                        # (reused staging slab) may hand us dirty rows
                         out[row, pos : pos + chunk] = 0
                         pos += chunk
                         continue
@@ -241,16 +306,20 @@ class Storage:
 
         Only for filesystem-backed storage; any unreadable range is left
         zeroed (same semantics as the Python path — SHA1 flags the piece).
-        Returns False to take the Python path when native IO is
-        unavailable. With ``row_status`` given, a failed/short/torn
-        segment marks its row False instead of raising or zero-rebuilding.
+        Returns False to fall back when native IO is unavailable. With
+        ``row_status`` given, a failed/short/torn segment marks its row
+        False instead of raising or zero-rebuilding — the preads land
+        directly in the caller's (possibly row-strided) buffer and the
+        caller sentinels the failed rows.
         """
         if not isinstance(self.method, FsStorage):
             return False
         if out.strides[1] != 1 or out.strides[0] < out.shape[1]:
             return False  # need row-strided uint8 memory
-        from torrent_tpu_torch.native.io_engine import NativeIOError, get_engine
-
+        try:
+            from torrent_tpu_torch.native.io_engine import NativeIOError, get_engine
+        except ImportError:
+            return False
         engine = get_engine()
         if engine is None:
             return False
@@ -267,8 +336,8 @@ class Storage:
             for path, foff, chunk in self.segments(idx * self.info.piece_length, plen):
                 if path is None:
                     # pad span: zeros by definition — force them, since a
-                    # zero_fill=False caller hands us rows that may hold a
-                    # previous batch's bytes
+                    # zero_fill=False caller (reused staging slab) hands
+                    # us rows that may hold a previous batch's bytes
                     out[row, pos : pos + chunk] = 0
                     pos += chunk
                     continue
@@ -295,16 +364,19 @@ class Storage:
         extent = (out.shape[0] - 1) * row_stride + out.shape[1] if out.shape[0] else 0
         try:
             if row_status is not None:
+                import errno as _errno
+
                 statuses = np.zeros(len(quads), dtype=np.int32)
                 rc = engine.read_into(
                     paths, quads, out.ctypes.data, extent,
                     keepalive=out, statuses=statuses,
                 )
-                if rc != 0 and (statuses == errno.ENOENT).any():
-                    # a file vanished between our stat() and the engine's
-                    # open(): tt_io_read_batch fast-fails WITHOUT submitting
-                    # any segment, so the zero statuses of the other rows
-                    # are meaningless — re-derive every row on the Python path
+                if rc != 0 and (statuses == _errno.ENOENT).any():
+                    # a file vanished between our stat() and the
+                    # engine's open(): tt_io_read_batch fast-fails
+                    # WITHOUT submitting any segment, so the zero
+                    # statuses of the other rows are meaningless —
+                    # re-derive every row on the Python path
                     row_status[:] = True
                     return False
                 for q in np.nonzero(statuses)[0]:
@@ -314,8 +386,8 @@ class Storage:
         except (NativeIOError, ValueError):
             if row_status is None:
                 out[:] = 0  # a failed segment can leave partial bytes; the
-                return False  # Python path rebuilds from a clean buffer
-            row_status[:] = True  # the Python path re-derives every row itself
+                return False  # Python fallback rebuilds from a clean buffer
+            row_status[:] = True  # the fallback re-derives every row itself
             return False
         return True
 
@@ -330,16 +402,76 @@ class FsStorage:
     per call — read_batch hits the same files tens of thousands of times.
     """
 
+    PARTS_DIR = ".parts"
+
     def __init__(self, root: str | os.PathLike):
         self.root = os.fspath(root)
         self._handles: dict[tuple[str, ...], object] = {}
         self._lock = named_lock("storage.fs._lock")
+        # deselected files: their boundary-piece spill is routed into a
+        # hidden .parts mirror instead of creating visible stub files
+        # (the partfile behavior of long-lived clients)
+        self._unwanted: set[tuple[str, ...]] = set()
+        # idempotent memo (same key always computes the same value, dict
+        # setitem is atomic under the GIL): racing writers agree, and
+        # taking _lock here would self-deadlock the locked callers
+        self._parts_cache: dict[tuple[str, ...], str] = {}  # guarded-by: none
+
+    def set_unwanted(self, paths, all_paths=()) -> None:
+        """Route these files' IO into the parts mirror; every WANTED path
+        (from ``all_paths``) that has a mirror file is promoted — mirror
+        renamed into place — so spilled bytes survive both a selection
+        widening and a process restart (the selection is re-applied
+        before start, which re-triggers promotion)."""
+        new = {tuple(p) for p in paths}
+        with self._lock:
+            self._unwanted = new
+            # drop (don't close) cached handles: a worker thread may be
+            # mid-pread on one — clearing lets in-flight readers finish
+            # on their own reference while new opens re-route
+            self._handles.clear()
+        for path in {tuple(p) for p in all_paths} - new:
+            self._promote(path)
+
+    def _parts_abspath(self, path: tuple[str, ...]) -> str:
+        cached = self._parts_cache.get(path)
+        if cached is None:
+            tail = path[-1][-40:]
+            key = hashlib.sha1("/".join(path).encode("utf-8")).hexdigest()[:16]
+            cached = os.path.join(self.root, self.PARTS_DIR, f"{key}_{tail}")
+            self._parts_cache[path] = cached
+        return cached
+
+    def _promote(self, path: tuple[str, ...]) -> None:
+        # under the lock: set() resolves-and-opens under the same lock,
+        # so a threaded writer either opens the mirror BEFORE the rename
+        # (its fd follows the inode — the write lands in the promoted
+        # real file) or resolves the real path after; never a freshly
+        # recreated mirror the rename already left behind
+        with self._lock:
+            parts = self._parts_abspath(path)
+            if not os.path.exists(parts):
+                return
+            real = os.path.join(self.root, *path)
+            if os.path.exists(real):
+                # both exist (external interference or a pre-seeded
+                # file): the real file wins for IO, but spilled bytes
+                # are DATA — never delete them; the orphan is inert
+                return
+            os.makedirs(os.path.dirname(real), exist_ok=True)
+            os.replace(parts, real)
 
     def _abspath(self, path: tuple[str, ...]) -> str:
         for part in path:
             if part in ("", ".", "..") or "/" in part or "\\" in part or "\x00" in part:
                 raise StorageError(f"unsafe path component {part!r}")
-        return os.path.join(self.root, *path)
+        real = os.path.join(self.root, *path)
+        if path in self._unwanted and not os.path.exists(real):
+            # mirror only files with NO real presence: a deselected file
+            # that already holds verified data keeps reading/writing in
+            # place (no visible-artifact problem — it already exists)
+            return self._parts_abspath(path)
+        return real
 
     def _open_read(self, path: tuple[str, ...]):
         with self._lock:
@@ -351,6 +483,13 @@ class FsStorage:
                     raise StorageError(f"cannot open {path}: {e}") from e
                 self._handles[path] = f
             return f
+
+    def open_read_handle(self, path: tuple[str, ...]):
+        """The cached read handle, for zero-copy egress (sendfile /
+        preadv). The handle is shared with every other reader: callers
+        must stick to positional IO (``os.sendfile``/``os.preadv``) and
+        never seek or close it."""
+        return self._open_read(path)
 
     def get(self, path: tuple[str, ...], offset: int, length: int) -> bytes:
         f = self._open_read(path)
@@ -368,10 +507,15 @@ class FsStorage:
 
     def set(self, path: tuple[str, ...], offset: int, data: bytes) -> None:
         try:
-            abspath = self._abspath(path)
-            os.makedirs(os.path.dirname(abspath), exist_ok=True)
-            # in-place update without truncating (storage.ts:174-196)
-            fd = os.open(abspath, os.O_WRONLY | os.O_CREAT, 0o644)
+            # resolve+open under the lock (see _promote): routing and the
+            # rename can't interleave with this open. The pwrite itself
+            # runs unlocked — it follows the fd's inode wherever a
+            # concurrent promote renamed it.
+            with self._lock:
+                abspath = self._abspath(path)
+                os.makedirs(os.path.dirname(abspath), exist_ok=True)
+                # in-place update without truncating (storage.ts:174-196)
+                fd = os.open(abspath, os.O_WRONLY | os.O_CREAT, 0o644)
             try:
                 os.pwrite(fd, data, offset)
             finally:
@@ -389,7 +533,10 @@ class FsStorage:
     def close(self) -> None:
         with self._lock:
             for f in self._handles.values():
-                f.close()  # type: ignore[union-attr]
+                try:
+                    f.close()  # type: ignore[union-attr]
+                except Exception:
+                    pass
             self._handles.clear()
 
 
