@@ -181,9 +181,39 @@ Phases (any failure exits non-zero, and no phase hides an error):
    flush and SHA-1 launches, the restart recheck with its scheduler
    launches, and the v2 transfer's wall. Every client, the scheduler and
    the tracker are closed, and no task is left pending.
+11. Joining a swarm from a magnet (``codec/magnet.py``,
+   ``session/metadata.py``, ``net/dht.py``, ``net/utp.py``) on the card,
+   at phase 10's widths (256 KiB pieces, 16 KiB blocks, its
+   ``TorrentConfig`` with the DHT re-announced every 0.5 s) and a depth
+   cut to 256 MiB (1024 pieces). One loopback bootstrap ``DHTNode``;
+   every client has the DHT (bootstrapped on it) and uTP on. 11a: a fresh
+   seeded 256 MiB file, authored with ``make_torrent(hasher="gpu")`` and
+   no tracker, is rechecked by a ``hasher="gpu"`` seed (SEEDING, SHA-1
+   launches) that announces it to the DHT; a ``hasher="gpu"`` leech calls
+   ``add_magnet`` with a magnet holding only the info hash (retried on
+   ``MetadataError`` while the announce propagates) and downloads: every
+   peer writer it has must be a ``_UtpWriter`` (a TCP connection that won
+   the dial race fails the phase), every piece goes through
+   ``Torrent._verify_batch_device`` (at least 1024), no piece-sized input
+   reaches the session's ``hashlib``, the wrappers run no plain
+   (CPU-fallback) version, and a fresh hashlib recheck is all True; a
+   ``hasher="cpu"`` leech joins the same magnet for the hashlib wall.
+   11b: phase 5's six files (1 MiB pieces) go from a v2 seed to a v2
+   leech, both ``hasher="gpu"``, through a btmh magnet with the seed in
+   ``x.pe`` (the info dict SHA-256-checked, the piece layers
+   merkle-proven): the files must be equal and the SHA-256 row and merkle
+   kernels must launch, with no CPU-fallback launch. 11c: the seed's
+   client ``publish_mutable``s the 11a info hash (BEP 46) and the v2
+   leech's ``resolve_mutable`` of the key's btpk magnet must return it.
+   Printed beside the card's name and power limit: the authoring and the
+   seed's recheck, the time from the first ``add_magnet`` to the first
+   metadata byte and to the registration, both 11a download walls and
+   MiB/s, the ingest flushes, pieces a flush and SHA-1 launches, the 11b
+   wall with its launches, and phase 11's wall. Every client, DHT node
+   and endpoint is closed, and no task is left pending.
 
 The line before the last is the kernels' JSON record (its ``launches``
-are phases 4 and 5's; phases 7 to 10 print their own); the last line is
+are phases 4 and 5's; phases 7 to 11 print their own); the last line is
 ``{"ok": true, "device": {...}}``. The page cache holds the payload when
 it is rechecked (it was just written), so the end-to-end rates measure
 reads from memory, padding, copies and the kernels, not a disk.
@@ -1365,6 +1395,40 @@ SESSION_BATCH = 256  # TorrentConfig.verify_batch_size's default: one ingest bat
 PIECE_SIZED = 16 * 1024  # a hashlib input this long or longer is a piece, not a key
 
 
+class CountingHashlib:
+    """Stands in for a session module's ``hashlib``: counts piece-sized
+    SHA-1 inputs (phases 10 and 11 require none on the card's path)."""
+
+    def __init__(self):
+        self.piece_sized = 0
+
+    def sha1(self, data=b"", *args, **kwargs):
+        if len(data) >= PIECE_SIZED:
+            self.piece_sized += 1
+        return hashlib.sha1(data, *args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(hashlib, name)
+
+
+def counting(ingest: dict, real):
+    """Wraps a ``Torrent`` ingest verify: flushes, pieces and seconds per
+    torrent in ``ingest[id(torrent)]`` (the smoke's instrument around the
+    package, never inside it)."""
+
+    def wrapper(self, pieces, expected):
+        c = ingest.setdefault(id(self), [0, 0, 0.0])
+        c[0] += 1
+        c[1] += len(pieces)
+        t0 = time.perf_counter()
+        try:
+            return real(self, pieces, expected)
+        finally:
+            c[2] += time.perf_counter() - t0
+
+    return wrapper
+
+
 def session_phase(tmp: str, lib_torrents: list, v2_meta, card: str) -> dict:
     """Phase 10: the BitTorrent session on the card (see the module
     docstring). Returns each sub-path's launches per kernel."""
@@ -1412,34 +1476,9 @@ def session_phase(tmp: str, lib_torrents: list, v2_meta, card: str) -> dict:
     real_v1, real_v2 = Torrent._verify_batch_device, Torrent._verify_batch_device_v2
     real_fold = merkle.piece_root_cpu
 
-    def counting(real):
-        def wrapper(self, pieces, expected):
-            c = ingest.setdefault(id(self), [0, 0, 0.0])
-            c[0] += 1
-            c[1] += len(pieces)
-            t0 = time.perf_counter()
-            try:
-                return real(self, pieces, expected)
-            finally:
-                c[2] += time.perf_counter() - t0
-
-        return wrapper
-
     def counting_fold(data, pad):
         host_folds[0] += 1
         return real_fold(data, pad)
-
-    class CountingHashlib:
-        def __init__(self):
-            self.piece_sized = 0
-
-        def sha1(self, data=b"", *args, **kwargs):
-            if len(data) >= PIECE_SIZED:
-                self.piece_sized += 1
-            return hashlib.sha1(data, *args, **kwargs)
-
-        def __getattr__(self, name):
-            return getattr(hashlib, name)
 
     # the transfers wait on loopback TCP, not a timer: only the choke
     # round and the announce retry are shortened, as the session tests do
@@ -1491,7 +1530,7 @@ def session_phase(tmp: str, lib_torrents: list, v2_meta, card: str) -> dict:
             # -- leech on the card: every finished piece through the SHA-1 kernel
             leech = await started(config(hasher="gpu"))
             proxy = CountingHashlib()
-            Torrent._verify_batch_device = counting(real_v1)
+            Torrent._verify_batch_device = counting(ingest, real_v1)
             torrent_mod.hashlib = proxy
             reset()
             try:
@@ -1557,7 +1596,7 @@ def session_phase(tmp: str, lib_torrents: list, v2_meta, card: str) -> dict:
             t2s = await v2_seed.add(m2, tmp)
             check(t2s.state == TorrentState.SEEDING, f"v2 seed: {t2s.state}")
             v2_leech = await started(config(hasher="gpu"))
-            Torrent._verify_batch_device_v2 = counting(real_v2)
+            Torrent._verify_batch_device_v2 = counting(ingest, real_v2)
             merkle.piece_root_cpu = counting_fold
             reset()
             try:
@@ -1619,6 +1658,299 @@ def session_phase(tmp: str, lib_torrents: list, v2_meta, card: str) -> dict:
         f"{out['gpu_pieces']} pieces through the SHA-1 kernel (hashlib recheck all True, no piece-sized hashlib "
         f"input), the flipped batch flagged piece {SESSION_FLIP} alone, the restart rechecked through the "
         f"scheduler, the v2 leech's files equal the seed's"
+    )
+    return out["launches"]
+
+
+# ---------------------------------------------------------------- phase 11
+
+MAGNET_BYTES = 256 << 20  # 11a's file: 1024 pieces of 256 KiB (phase 10's 1 GiB cut in depth)
+MAGNET_WAIT_S = 600  # the longest a phase-11 transfer may take
+MAGNET_TRIES = 120  # add_magnet attempts, 0.25 s apart, while the seed's DHT announce propagates
+MAGNET_SEED_KEY = 46  # the generator seed of 11c's ed25519 key
+
+
+def magnet_phase(tmp: str, v2_meta, rng, card: str) -> dict:
+    """Phase 11: joining a swarm from a magnet on the card, found through
+    a loopback DHT and carried over uTP (see the module docstring).
+    Returns each sub-path's launches per kernel."""
+    import asyncio
+    import filecmp
+
+    from torrent_tpu_torch.codec.magnet import Magnet, mutable_magnet_uri
+    from torrent_tpu_torch.codec.metainfo import parse_metainfo
+    from torrent_tpu_torch.codec.metainfo_v2 import encode_metainfo_v2, parse_metainfo_v2
+    from torrent_tpu_torch.models import merkle
+    from torrent_tpu_torch.net import extension as ext
+    from torrent_tpu_torch.net.dht import DHTNode
+    from torrent_tpu_torch.net.utp import _UtpWriter
+    from torrent_tpu_torch.ops import sha1_cuda, sha256_cuda
+    from torrent_tpu_torch.parallel.verify import verify_pieces
+    from torrent_tpu_torch.session import torrent as torrent_mod
+    from torrent_tpu_torch.session.client import Client, ClientConfig
+    from torrent_tpu_torch.session.metadata import MetadataError
+    from torrent_tpu_torch.session.torrent import Torrent, TorrentConfig, TorrentState
+    from torrent_tpu_torch.storage.storage import FsStorage, Storage
+    from torrent_tpu_torch.tools.make_torrent import make_torrent
+    from torrent_tpu_torch.utils import ed25519
+
+    kernels = {
+        "sha1_cuda": sha1_cuda.sha1_pieces_cuda,
+        "sha256_cuda": sha256_cuda.sha256_pieces_cuda,
+        "sha256_merkle_cuda": sha256_cuda.sha256_merkle_cuda,
+    }
+    # the plain versions the wrappers run on a CPU tensor: a call of one
+    # on the path is a CPU-fallback launch
+    plain = [(sha1_cuda, "sha1_pieces_torch"), (sha256_cuda, "sha256_pieces_torch"),
+             (sha256_cuda, "sha256_merkle_torch"), (sha256_cuda, "sha256_pairs_torch")]
+    fallbacks = [0]
+
+    def reset() -> None:
+        for k in kernels.values():
+            k.launches = 0
+        fallbacks[0] = 0
+
+    def counts() -> dict:
+        return {**{name: k.launches for name, k in kernels.items()}, "cpu_fallback": fallbacks[0]}
+
+    def counting_plain(real):
+        def wrapper(*args, **kwargs):
+            fallbacks[0] += 1
+            return real(*args, **kwargs)
+
+        return wrapper
+
+    originals = [(mod, name, getattr(mod, name)) for mod, name in plain]
+    for mod, name, real in originals:
+        setattr(mod, name, counting_plain(real))
+
+    d = os.path.join(tmp, "magnet")
+    src = os.path.join(d, "src")
+    dirs = {name: os.path.join(d, name) for name in ("gpu", "cpu", "v2")}
+    for p in (src, *dirs.values()):
+        os.makedirs(p)
+    payload = os.path.join(src, "magnet.bin")
+    write_random(payload, MAGNET_BYTES, rng)
+    t0 = time.perf_counter()
+    meta = parse_metainfo(make_torrent(payload, "", piece_length=PIECE, hasher="gpu"))
+    author_s = time.perf_counter() - t0
+    n = meta.info.num_pieces
+    check(n == MAGNET_BYTES // PIECE and meta.announce == "", f"11a torrent: {n} pieces, announce {meta.announce!r}")
+
+    # the smoke's own instruments around the package, as phase 10's
+    ingest: dict = {}
+    host_folds = [0]
+    first_meta = [None]
+    real_v1, real_v2 = Torrent._verify_batch_device, Torrent._verify_batch_device_v2
+    real_fold = merkle.piece_root_cpu
+    real_add = ext.MetadataAssembler.add
+
+    def counting_fold(data, pad):
+        host_folds[0] += 1
+        return real_fold(data, pad)
+
+    def first_byte(self, msg):
+        if first_meta[0] is None:
+            first_meta[0] = time.perf_counter()
+        return real_add(self, msg)
+
+    out: dict = {"launches": {}, "author_s": author_s}
+
+    async def go():
+        boot = await DHTNode(host="127.0.0.1").start()
+        clients = []
+
+        # phase 10's TorrentConfig (0.15 s choke round, 1 s announce
+        # retry) with the DHT re-announced every 0.5 s, uTP on
+        def config(**kw) -> ClientConfig:
+            return ClientConfig(
+                host="127.0.0.1", enable_dht=True, dht_bootstrap=(("127.0.0.1", boot.port),), enable_utp=True,
+                torrent=TorrentConfig(choke_interval=0.15, announce_retry=1.0, dht_interval=0.5), **kw,
+            )
+
+        async def started(cfg) -> Client:
+            c = Client(cfg)
+            clients.append(c)
+            await c.start()
+            return c
+
+        async def join(client, magnet, where) -> tuple:
+            """add_magnet, retried while the DHT has no peer for the hash;
+            returns the torrent, the seconds to the first metadata byte and
+            to the registration, the download wall from the first call, the
+            MetadataErrors seen and the peers' writer types seen."""
+            first_meta[0] = None
+            tries = 0
+            ext.MetadataAssembler.add = first_byte
+            t1 = time.perf_counter()
+            try:
+                while True:
+                    tries += 1
+                    try:
+                        torrent = await client.add_magnet(magnet, where)
+                        break
+                    except MetadataError:
+                        check(tries < MAGNET_TRIES, f"add_magnet found no peer in {tries} tries")
+                        await asyncio.sleep(0.25)
+            finally:
+                ext.MetadataAssembler.add = real_add
+            registered = time.perf_counter() - t1
+            check(first_meta[0] is not None, "add_magnet returned with no metadata byte read")
+            writers: set = set()
+            deadline = time.perf_counter() + MAGNET_WAIT_S
+            while not torrent.bitfield.complete:
+                check(time.perf_counter() < deadline, f"download incomplete after {MAGNET_WAIT_S} s: {torrent.status()}")
+                writers.update(type(p.writer) for p in torrent.peers.values())
+                await asyncio.sleep(0.05)
+            wall = time.perf_counter() - t1
+            writers.update(type(p.writer) for p in torrent.peers.values())
+            return torrent, first_meta[0] - t1, registered, wall, tries - 1, writers
+
+        try:
+            # -- 11a: a hash-only v1 magnet, found through the DHT, over uTP
+            seed = await started(config(hasher="gpu"))
+            reset()
+            t1 = time.perf_counter()
+            ts = await seed.add(meta, src)
+            out["seed_recheck_s"] = time.perf_counter() - t1
+            out["launches"]["seed recheck"] = counts()
+            check(ts.state == TorrentState.SEEDING and ts.bitfield.count() == n,
+                  f"11a seed: {ts.state} with {ts.bitfield.count()}/{n} pieces")
+            check(ts.verifier is not None and ts.verifier.last_result is not None
+                  and ts.verifier.last_result.n_valid == n, "11a seed: the recheck did not run GPUVerifier.verify_storage")
+            check(out["launches"]["seed recheck"]["sha1_cuda"] > 0, "11a seed: the recheck launched no SHA-1 kernel")
+            magnet = Magnet(info_hash=meta.info_hash)
+            check(not magnet.trackers and not magnet.peer_addrs, "11a: the magnet is not hash-only")
+
+            leech = await started(config(hasher="gpu"))
+            proxy = CountingHashlib()
+            Torrent._verify_batch_device = counting(ingest, real_v1)
+            torrent_mod.hashlib = proxy
+            reset()
+            try:
+                tl, out["meta_s"], out["registered_s"], out["gpu_wall_s"], out["meta_retries"], writers = await join(
+                    leech, magnet, dirs["gpu"]
+                )
+            finally:
+                Torrent._verify_batch_device = real_v1
+                torrent_mod.hashlib = hashlib
+            out["launches"]["gpu download"] = counts()
+            out["gpu_writers"] = sorted(w.__name__ for w in writers)
+            check(writers and all(w is _UtpWriter for w in writers),
+                  f"11a leech: peer writers {out['gpu_writers']}, not all _UtpWriter")
+            flushes, pieces, out["gpu_flush_s"] = ingest.get(id(tl), [0, 0, 0.0])
+            out["gpu_flushes"], out["gpu_pieces"] = flushes, pieces
+            check(pieces >= n, f"11a leech: {pieces} pieces went through _verify_batch_device, fewer than {n}")
+            check(proxy.piece_sized == 0, f"11a leech: {proxy.piece_sized} piece-sized hashlib inputs in the session")
+            got = out["launches"]["gpu download"]
+            check(got["sha1_cuda"] > 0 and got["cpu_fallback"] == 0, f"11a leech: launches {got}")
+            await leech.close()
+            fresh = await asyncio.to_thread(
+                verify_pieces, Storage(FsStorage(dirs["gpu"]), meta.info), meta.info, "cpu"
+            )
+            check(fresh.all(), f"11a leech: a fresh hashlib recheck fails {int((~fresh).sum())} pieces")
+
+            cpu_leech = await started(config(hasher="cpu"))
+            tc, out["cpu_meta_s"], _, out["cpu_wall_s"], _, cpu_writers = await join(cpu_leech, magnet, dirs["cpu"])
+            out["cpu_writers"] = sorted(w.__name__ for w in cpu_writers)
+            await cpu_leech.close()
+            check(filecmp.cmp(os.path.join(dirs["cpu"], meta.info.name), payload, shallow=False),
+                  "11a hashlib leech: bytes differ from the seed's")
+
+            # -- 11b: a pure-v2 (btmh) magnet, the seed in x.pe
+            m2 = parse_metainfo_v2(encode_metainfo_v2(v2_meta.info, v2_meta.piece_layers, ""))
+            v2_seed = await started(config(hasher="gpu"))
+            t2s = await v2_seed.add(m2, tmp)
+            check(t2s.state == TorrentState.SEEDING, f"11b v2 seed: {t2s.state}")
+            v2_leech = await started(config(hasher="gpu"))
+            Torrent._verify_batch_device_v2 = counting(ingest, real_v2)
+            merkle.piece_root_cpu = counting_fold
+            host_folds[0] = 0
+            reset()
+            try:
+                t2l, out["v2_meta_s"], _, out["v2_wall_s"], _, v2_writers = await join(
+                    v2_leech, Magnet(info_hash_v2=m2.info_hash_v2, peer_addrs=(("127.0.0.1", v2_seed.port),)), dirs["v2"]
+                )
+            finally:
+                Torrent._verify_batch_device_v2 = real_v2
+                merkle.piece_root_cpu = real_fold
+            out["launches"]["v2 download"] = counts()
+            out["v2_writers"] = sorted(w.__name__ for w in v2_writers)
+            out["v2_flushes"], out["v2_device_pieces"], out["v2_flush_s"] = ingest.get(id(t2l), [0, 0, 0.0])
+            out["v2_host_pieces"] = host_folds[0]
+            out["v2_pieces"] = t2l.info.num_pieces
+            for rel, _ in MULTI_FILES:
+                check(filecmp.cmp(os.path.join(dirs["v2"], v2_meta.info.name, rel),
+                                  os.path.join(tmp, v2_meta.info.name, rel), shallow=False),
+                      f"11b v2 leech: {rel} differs from the seed's")
+            got = out["launches"]["v2 download"]
+            check(got["sha256_cuda"] > 0 and got["sha256_merkle_cuda"] > 0 and got["cpu_fallback"] == 0,
+                  f"11b v2 leech: launches {got}")
+            check(out["v2_device_pieces"] + out["v2_host_pieces"] >= out["v2_pieces"],
+                  f"11b v2 leech: {out['v2_device_pieces']} + {out['v2_host_pieces']} pieces verified of {out['v2_pieces']}")
+
+            # -- 11c: BEP 46, the 11a hash behind a mutable item
+            secret = np.random.default_rng(MAGNET_SEED_KEY).bytes(32)
+            _, stored = await seed.publish_mutable(secret, meta.info_hash, seq=1)
+            check(stored > 0, "11c: the mutable item was stored on no node")
+            resolved = await v2_leech.resolve_mutable(mutable_magnet_uri(ed25519.publickey(secret)))
+            check(resolved == meta.info_hash, f"11c: resolved {resolved.hex()}, published {meta.info_hash.hex()}")
+            out["bep46_stored"] = stored
+        finally:
+            for c in clients:
+                await c.close()
+            boot.close()
+        await asyncio.sleep(0)
+        pending = [t for t in asyncio.all_tasks() if t is not asyncio.current_task() and not t.done()]
+        check(not pending, f"tasks left pending: {[t.get_name() for t in pending]}")
+
+    t0 = time.perf_counter()
+    try:
+        asyncio.run(go())
+    finally:
+        for mod, name, real in originals:
+            setattr(mod, name, real)
+    out["phase_s"] = time.perf_counter() - t0
+    mib = MAGNET_BYTES / 2**20
+    size = f"{mib:.0f} MiB ({n} x {PIECE >> 10} KiB)"
+    v2_mib = sum(s for _, s in MULTI_FILES) / 2**20
+    log(
+        f"time: magnet 11a authoring of {size} (make_torrent, hasher gpu) s={out['author_s']:.3f}; "
+        f"seed recheck (GPUVerifier.verify_storage) s={out['seed_recheck_s']:.3f} "
+        f"sha1_cuda launches={out['launches']['seed recheck']['sha1_cuda']} {card}"
+    )
+    log(
+        f"time: magnet 11a hash-only magnet via the DHT: add_magnet to the first metadata byte s={out['meta_s']:.3f}, "
+        f"to the registration s={out['registered_s']:.3f} ({out['meta_retries']} MetadataError retries); "
+        f"hashlib leech: to the first metadata byte s={out['cpu_meta_s']:.3f} {card}"
+    )
+    log(
+        f"time: magnet 11a download {size} over uTP gpu wall s={out['gpu_wall_s']:.3f} "
+        f"MiB/s={mib / out['gpu_wall_s']:.1f}; hashlib wall s={out['cpu_wall_s']:.3f} "
+        f"MiB/s={mib / out['cpu_wall_s']:.1f}; gpu/hashlib wall ratio={out['gpu_wall_s'] / out['cpu_wall_s']:.3f}; "
+        f"ingest flushes={out['gpu_flushes']} pieces={out['gpu_pieces']} "
+        f"mean pieces a flush={out['gpu_pieces'] / max(1, out['gpu_flushes']):.2f} "
+        f"seconds in _verify_batch_device={out['gpu_flush_s']:.3f} "
+        f"(ms a flush={1e3 * out['gpu_flush_s'] / max(1, out['gpu_flushes']):.2f}) "
+        f"sha1_cuda launches={out['launches']['gpu download']['sha1_cuda']} "
+        f"cpu fallback launches={out['launches']['gpu download']['cpu_fallback']}; "
+        f"writers gpu {out['gpu_writers']} hashlib {out['cpu_writers']} {card}"
+    )
+    log(
+        f"time: magnet 11b btmh magnet of {sum(s for _, s in MULTI_FILES)} bytes at 1 MiB pieces "
+        f"to the first metadata byte s={out['v2_meta_s']:.3f}, wall s={out['v2_wall_s']:.3f} "
+        f"MiB/s={v2_mib / out['v2_wall_s']:.1f}; {out['v2_pieces']} pieces: "
+        f"{out['v2_device_pieces']} through _verify_batch_device_v2 in {out['v2_flushes']} flushes "
+        f"(ms a flush={1e3 * out['v2_flush_s'] / max(1, out['v2_flushes']):.2f}), "
+        f"{out['v2_host_pieces']} tail pieces folded on the host; launches {out['launches']['v2 download']}; "
+        f"writers {out['v2_writers']} {card}"
+    )
+    log(f"time: magnet phase 11 wall s={out['phase_s']:.3f} {card}")
+    log(
+        f"phase 11: a hash-only magnet resolved through the DHT and downloaded over uTP (every writer "
+        f"_UtpWriter), {out['gpu_pieces']} pieces through the SHA-1 kernel with no CPU-fallback launch "
+        f"(hashlib recheck all True); the btmh magnet's files equal the seed's (SHA-256 and merkle launches); "
+        f"BEP 46 resolved the published hash ({out['bep46_stored']} nodes stored it)"
     )
     return out["launches"]
 
@@ -2154,6 +2486,9 @@ def main() -> dict:
 
         # ----------------------------------------------------------- 10
         session_launches = session_phase(tmp, lib_torrents, v2_multi_meta, card)
+
+        # ----------------------------------------------------------- 11
+        magnet_launches = magnet_phase(tmp, v2_multi_meta, rng, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2319,6 +2654,7 @@ def main() -> dict:
     log(f"phase 8: launches per rank and sub-phase {dist_launches}")
     log(f"phase 9: bridge path launches {bridge_launches}")
     log(f"phase 10: session path launches {session_launches}")
+    log(f"phase 11: magnet path launches {magnet_launches}")
     log(json.dumps(kernels))
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "torrent_tpu"))
     check(not leaked, f"the port imported {leaked}")

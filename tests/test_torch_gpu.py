@@ -895,3 +895,113 @@ def test_session_v2_swarm_on_card(cuda, tmp_path):
         tmp_path, meta, files, tmp_path, [sha256_pieces_cuda, sha256_merkle_cuda]
     )
     assert counts["sha256_pieces_cuda"] > 0 and counts["sha256_merkle_cuda"] > 0, counts
+
+
+# ---------------------------------------------------------------- magnet
+
+
+def _magnet_swarm(tmp_path, meta, storage_root, magnet_of, expect):
+    """Seed ``meta`` from ``storage_root`` and join it by a magnet from an
+    empty directory, both clients ``hasher="gpu"`` on the card with a
+    loopback DHT and uTP; returns the leech's launch counts, its peers'
+    writer types and its directory."""
+    import asyncio
+
+    from torrent_tpu_torch.net.dht import DHTNode
+    from torrent_tpu_torch.session.client import Client, ClientConfig
+    from torrent_tpu_torch.session.metadata import MetadataError
+    from torrent_tpu_torch.session.torrent import TorrentConfig
+
+    async def go():
+        boot = await DHTNode(host="127.0.0.1").start()
+        clients = []
+        try:
+            for _ in range(2):
+                c = Client(ClientConfig(
+                    host="127.0.0.1", hasher="gpu", enable_utp=True, enable_dht=True,
+                    dht_bootstrap=(("127.0.0.1", boot.port),),
+                    torrent=TorrentConfig(choke_interval=0.15, announce_retry=1.0, dht_interval=0.5),
+                ))
+                await c.start()
+                clients.append(c)
+            seed = await clients[0].add(meta, str(storage_root))
+            assert seed.bitfield.complete
+            for k in expect:
+                k.launches = 0
+            leech_dir = tmp_path / "leech"
+            leech_dir.mkdir()
+            for _ in range(80):  # the seed's DHT announce is asynchronous
+                try:
+                    leech = await clients[1].add_magnet(magnet_of(clients[0]), str(leech_dir))
+                    break
+                except MetadataError:
+                    await asyncio.sleep(0.25)
+            writers = set()
+            for _ in range(2400):
+                if leech.bitfield.complete:
+                    break
+                writers.update(type(p.writer) for p in leech.peers.values())
+                await asyncio.sleep(0.05)
+            assert leech.bitfield.complete, leech.status()
+            return {k.__name__: k.launches for k in expect}, writers, leech_dir
+        finally:
+            for c in clients:
+                await c.close()
+            boot.close()
+
+    return asyncio.run(asyncio.wait_for(go(), 300))
+
+
+def test_magnet_via_dht_over_utp_on_card(cuda, tmp_path):
+    """A hash-only magnet, found through a loopback DHT and carried over
+    uTP: the leech verifies every finished piece through the SHA-1
+    kernel."""
+    from torrent_tpu_torch.codec.magnet import Magnet
+    from torrent_tpu_torch.codec.metainfo import parse_metainfo
+    from torrent_tpu_torch.net.utp import _UtpWriter
+    from torrent_tpu_torch.tools.make_torrent import make_torrent
+
+    rng = np.random.default_rng(91)
+    data = rng.integers(0, 256, 40 * 65536 + 999, dtype=np.uint8).tobytes()
+    src = tmp_path / "seed"
+    src.mkdir()
+    (src / "x.bin").write_bytes(data)
+    meta = parse_metainfo(make_torrent(str(src / "x.bin"), "", piece_length=65536, hasher="gpu"))
+
+    counts, writers, leech_dir = _magnet_swarm(
+        tmp_path, meta, src, lambda seed: Magnet(info_hash=meta.info_hash), [sha1_pieces_cuda]
+    )
+    assert (leech_dir / "x.bin").read_bytes() == data
+    assert counts["sha1_pieces_cuda"] > 0, counts
+    assert writers == {_UtpWriter}, writers
+
+
+def test_btmh_magnet_on_card(cuda, tmp_path):
+    """A pure-v2 (btmh) magnet with the seed in ``x.pe``: the info dict
+    and piece layers come over the wire, and full pieces are verified
+    through the SHA-256 row and merkle kernels."""
+    from torrent_tpu_torch.codec.magnet import Magnet
+    from torrent_tpu_torch.codec.metainfo_v2 import encode_metainfo_v2, parse_metainfo_v2
+
+    rng = np.random.default_rng(92)
+    files = {
+        "multi/a.bin": rng.integers(0, 256, 9 * 65536 + 5, dtype=np.uint8).tobytes(),
+        "multi/b/c.bin": rng.integers(0, 256, 4 * 65536, dtype=np.uint8).tobytes(),
+    }
+    for rel, blob in files.items():
+        (tmp_path / rel).parent.mkdir(parents=True, exist_ok=True)
+        (tmp_path / rel).write_bytes(blob)
+    built = build_v2(
+        [(tuple(rel.split("/")[1:]), str(tmp_path / rel)) for rel in files], "multi", 65536, hasher="gpu"
+    )
+    meta = parse_metainfo_v2(encode_metainfo_v2(built.info, built.piece_layers, ""))
+
+    def magnet_of(seed):
+        return Magnet(info_hash_v2=meta.info_hash_v2, peer_addrs=(("127.0.0.1", seed.port),))
+
+    counts, _, leech_dir = _magnet_swarm(
+        tmp_path, meta, tmp_path, magnet_of, [sha256_pieces_cuda, sha256_merkle_cuda]
+    )
+    for rel, blob in files.items():
+        assert (leech_dir / rel).read_bytes() == blob, rel
+    assert counts["sha256_pieces_cuda"] > 0 and counts["sha256_merkle_cuda"] > 0, counts

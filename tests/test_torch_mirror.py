@@ -64,6 +64,18 @@ MIRRORED = (
     "storage/storage.py",
     "session/torrent.py",
     "session/client.py",
+    "net/ipfilter.py",
+    "net/socks.py",
+    "codec/magnet.py",
+    "session/metadata.py",
+    "utils/ed25519.py",
+    "codec/signing.py",
+    "net/dht.py",
+    "net/utp.py",
+    "net/lsd.py",
+    "net/natpmp.py",
+    "net/upnp.py",
+    "net/dnsprefs.py",
 )
 DIVERGENCES = {
     # the lockset sanitizer (analysis/sanitizer.py) is not ported: what
@@ -91,17 +103,9 @@ DIVERGENCES = {
     },
     "session/client.py": {
         "ClientConfig": 'hasher "gpu" | "cpu", default "gpu"; new field device',
-        "Client.__init__": (
-            "UPnP, NAT-PMP, DHT, LSD, uTP, BEP 34 DNS prefs, the IP filter and "
-            "the SOCKS5 proxy are not ported: each option raises NotImplementedError"
-        ),
         "Client.start": 'hasher "gpu" resolves the device before listening: no card, no socket',
         "Client._verifier_for": "a shared GPUVerifier on config.device",
         "Client.add": "the derived TorrentConfig carries device",
-        "Client.add_torrent_bytes": "require_signed raises: BEP 35 signing is not ported",
-        "Client.add_magnet": "raises NotImplementedError: magnets are not ported",
-        "Client.resolve_mutable": "raises NotImplementedError: BEP 46 is not ported",
-        "Client.add_mutable_magnet": "raises NotImplementedError: BEP 46 is not ported",
     },
 }
 

@@ -266,6 +266,53 @@ class TestWrappers:
         run(go())
 
 
+class TestMseOverUtp:
+    def test_required_encryption_over_utp_transport(self):
+        """MSE composes with the uTP transport: both sides RC4-only AND
+        uTP-enabled; the winning connection carries RC4 over the
+        reliable-UDP stream."""
+
+        async def go():
+            from torrent_tpu_torch.net.utp import _UtpWriter
+
+            rng = np.random.default_rng(29)
+            payload = rng.integers(0, 256, size=120_000, dtype=np.uint8).tobytes()
+            server, pump, announce_url = await _start_tracker()
+            m = _make_swarm_meta(payload, announce_url)
+            seed = Client(ClientConfig(host="127.0.0.1", enable_utp=True, hasher="cpu"))
+            leech = Client(ClientConfig(host="127.0.0.1", enable_utp=True, hasher="cpu"))
+            seed.config.torrent = fast_config(encryption="required")
+            leech.config.torrent = fast_config(encryption="required")
+            await seed.start()
+            await leech.start()
+            try:
+                ss = Storage(MemoryStorage(), m.info)
+                for off in range(0, len(payload), 65536):
+                    ss.set(off, payload[off : off + 65536])
+                t_seed = await seed.add(m, ss)
+                t_leech = await leech.add(m, Storage(MemoryStorage(), m.info))
+                await asyncio.wait_for(t_leech.on_complete.wait(), timeout=30)
+                assert t_leech.storage.get(0, len(payload)) == payload
+                # at least one side's connection is RC4-wrapped over uTP
+                writers = [
+                    p.writer
+                    for t in (t_seed, t_leech)
+                    for p in t.peers.values()
+                ]
+                assert any(
+                    isinstance(w, mse.WrappedWriter)
+                    and isinstance(w._w, _UtpWriter)
+                    for w in writers
+                ), [type(w).__name__ for w in writers]
+            finally:
+                await seed.close()
+                await leech.close()
+                server.close()
+                await asyncio.wait_for(pump, 5)
+
+        run(go(), timeout=60)
+
+
 def _make_swarm_meta(payload, announce_url):
     data = build_torrent_bytes(payload, 32768, announce_url.encode())
     m = parse_metainfo(data)

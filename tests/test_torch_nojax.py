@@ -100,6 +100,18 @@ def test_package_has_the_slice():
         "torrent_tpu_torch.session.torrent",
         "torrent_tpu_torch.session.client",
         "torrent_tpu_torch.models.hashes",
+        "torrent_tpu_torch.net.ipfilter",
+        "torrent_tpu_torch.net.socks",
+        "torrent_tpu_torch.codec.magnet",
+        "torrent_tpu_torch.session.metadata",
+        "torrent_tpu_torch.utils.ed25519",
+        "torrent_tpu_torch.codec.signing",
+        "torrent_tpu_torch.net.dht",
+        "torrent_tpu_torch.net.utp",
+        "torrent_tpu_torch.net.lsd",
+        "torrent_tpu_torch.net.natpmp",
+        "torrent_tpu_torch.net.upnp",
+        "torrent_tpu_torch.net.dnsprefs",
     ):
         assert name in MODULES
     assert (PACKAGE / "csrc" / "sha1.cu").is_file()

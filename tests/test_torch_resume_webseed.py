@@ -419,3 +419,105 @@ class TestV2Webseed:
                 httpd.shutdown()
 
         run(go(), timeout=60)
+
+
+class TestMagnetWebseeds:
+    def test_ws_param_roundtrip(self):
+        from torrent_tpu_torch.codec.magnet import Magnet, parse_magnet
+
+        m = Magnet(
+            info_hash=b"\x22" * 20,
+            web_seeds=("http://cdn.example/d/", "http://m.example/x?y=1"),
+        )
+        uri = m.to_uri()
+        assert "ws=http%3A%2F%2Fcdn.example%2Fd%2F" in uri
+        assert parse_magnet(uri).web_seeds == m.web_seeds
+
+    def test_magnet_ws_downloads_from_webseed_only(self, tmp_path):
+        """A ws= magnet completes with the DATA coming from the web
+        server: the only peer serves metadata but is paused, so every
+        block must arrive via the injected webseed."""
+        import os
+
+        from torrent_tpu_torch.codec.magnet import Magnet
+
+        async def go():
+            plen = 32768
+            payload = np.random.default_rng(61).integers(
+                0, 256, 4 * plen + 99, dtype=np.uint8
+            ).tobytes()
+            os.makedirs(tmp_path / "www")
+            (tmp_path / "www" / "mws.bin").write_bytes(payload)
+            httpd, base = serve_dir(tmp_path / "www")
+            data = build_torrent_bytes(
+                payload, plen, b"http://127.0.0.1:1/announce", name=b"mws.bin"
+            )
+            m = parse_metainfo(data)
+            seed = Client(ClientConfig(port=0, enable_upnp=False, hasher="cpu"))
+            leech = Client(ClientConfig(port=0, enable_upnp=False, hasher="cpu"))
+            await seed.start()
+            await leech.start()
+            try:
+                sd = str(tmp_path / "s")
+                os.makedirs(sd)
+                (tmp_path / "s" / "mws.bin").write_bytes(payload)
+                t_seed = await seed.add(m, sd)
+                await t_seed.pause()  # metadata yes, data no
+                magnet = Magnet(
+                    info_hash=m.info_hash,
+                    peer_addrs=(("127.0.0.1", seed.port),),
+                    web_seeds=(base,),
+                )
+                d = str(tmp_path / "l")
+                os.makedirs(d)
+                t = await asyncio.wait_for(leech.add_magnet(magnet.to_uri(), d), 60)
+                assert base in t.web_seed_urls
+                for _ in range(600):
+                    if t.bitfield.complete:
+                        break
+                    await asyncio.sleep(0.05)
+                assert t.bitfield.complete, t.status()
+                assert open(os.path.join(d, "mws.bin"), "rb").read() == payload
+                assert t_seed.uploaded == 0  # every byte came off the webseed
+            finally:
+                await seed.close()
+                await leech.close()
+                httpd.shutdown()
+
+        run(go(), timeout=90)
+
+    def test_unsafe_webseed_schemes_refused(self, tmp_path):
+        """file:// and ftp:// webseeds (SSRF / local-read vectors) are
+        dropped at every entry point: url-list, add_web_seed, ws=."""
+        import os
+
+        from torrent_tpu_torch.session.webseed import allowed_url
+
+        assert allowed_url("http://x/d/") and allowed_url("https://x/d")
+        for bad in ("file:///etc/shadow", "ftp://h/x", "gopher://h", ""):
+            assert not allowed_url(bad)
+
+        async def go():
+            data = build_torrent_bytes(
+                b"z" * 1000, 512, b"http://127.0.0.1:1/announce", name=b"w.bin"
+            )
+            # splice hostile url-list into the torrent
+            from torrent_tpu_torch.codec.bencode import bdecode, bencode
+
+            raw = bdecode(data)
+            raw[b"url-list"] = [b"file:///etc/shadow", b"http://ok.example/d/"]
+            m = parse_metainfo(bencode(raw))
+            c = Client(ClientConfig(port=0, enable_upnp=False, hasher="cpu"))
+            await c.start()
+            try:
+                d = str(tmp_path / "ws-unsafe")
+                os.makedirs(d)
+                t = await c.add(m, d)
+                assert t.web_seed_urls == ["http://ok.example/d/"]
+                assert not t.add_web_seed("file:///etc/passwd")
+                assert not t.add_web_seed("ftp://internal/secret")
+                assert t.add_web_seed("http://two.example/d/")
+            finally:
+                await c.close()
+
+        run(go())

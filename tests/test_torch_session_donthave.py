@@ -479,6 +479,28 @@ class TestCompletedLatchAcrossRestart:
         run(go())
 
 
+class TestDhtReadOnlyPlumbing:
+    def test_client_config_reaches_dht_node(self):
+        async def go():
+            from torrent_tpu_torch.session.client import Client, ClientConfig
+
+            c = Client(
+                ClientConfig(
+                    host="127.0.0.1",
+                    enable_upnp=False,
+                    enable_dht=True,
+                    dht_read_only=True, hasher="cpu",
+                )
+            )
+            await c.start()
+            try:
+                assert c.dht is not None and c.dht.read_only
+            finally:
+                await c.close()
+
+        run(go())
+
+
 class TestSeedLoopReentrancy:
     def test_respawn_does_not_stack_webseed_loops(self):
         async def go():

@@ -4,8 +4,8 @@ Each case holds one divergence listed in ``tests/test_torch_mirror.py``:
 the ``"gpu"`` hasher is the default and never turns into hashlib (no
 verifier → the torrent builds its own ``GPUVerifier``; a device error
 reaches the piece's waiter as the error), ``Client.start()`` refuses a
-missing card before it listens, the subsystems that are not ported yet
-are refused by name, the native RC4 gives the pure-Python keystream,
+missing card before it listens, the subsystems it once refused are
+accepted as the reference accepts them, the native RC4 gives the pure-Python keystream,
 and the config converters of ``compat.py`` carry a reference config
 across. Everything runs on the CPU: ``device="cpu"`` is the plain
 PyTorch SHA-1.
@@ -203,6 +203,29 @@ class TestStartRefusesAMissingCard:
 
         run(go())
 
+    def test_start_raises_before_the_udp_sockets_open(self, monkeypatch):
+        """With the DHT, uTP and LSD on, a missing card still stops
+        ``start()`` before any of their UDP sockets opens."""
+        import torch
+
+        from torrent_tpu_torch.net import dht, lsd, utp
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        opened = []
+        monkeypatch.setattr(dht.DHTNode, "start", lambda self: opened.append("dht"))
+        monkeypatch.setattr(utp, "create_utp_endpoint", lambda *a, **k: opened.append("utp"))
+        monkeypatch.setattr(lsd.LocalServiceDiscovery, "start", lambda self: opened.append("lsd"))
+
+        async def go():
+            c = Client(ClientConfig(host="127.0.0.1", enable_dht=True, enable_utp=True, enable_lsd=True))
+            with pytest.raises(RuntimeError, match="CUDA"):
+                await c.start()
+            assert c._server is None and c.dht is None and c.utp is None and c.lsd is None
+            await c.close()
+
+        run(go())
+        assert opened == []
+
     def test_cpu_device_and_cpu_hasher_start(self):
         async def go():
             for cfg in (
@@ -219,7 +242,7 @@ class TestStartRefusesAMissingCard:
         run(go())
 
 
-UNPORTED = {
+ONCE_REFUSED = {
     "enable_upnp": True,
     "enable_natpmp": True,
     "enable_dht": True,
@@ -231,37 +254,66 @@ UNPORTED = {
 }
 
 
+def _outcome(coro_fn):
+    """The exception type and text an awaited call ends in (None if it
+    returns), for holding the port's client against the reference's."""
+
+    async def go():
+        try:
+            await coro_fn()
+        except Exception as e:
+            return type(e).__name__, str(e)
+        return None
+
+    return go
+
+
 class TestUnportedSubsystemsRefused:
-    @pytest.mark.parametrize("option", sorted(UNPORTED))
+    """The options and entry points the port refused with
+    ``NotImplementedError`` until its discovery and transport planes
+    were ported (the case names keep that history): each is now
+    accepted and behaves as the reference's client does."""
+
+    @pytest.mark.parametrize("option", sorted(ONCE_REFUSED))
     def test_option_raises_not_implemented(self, option):
-        cfg = ClientConfig(hasher="cpu", **{option: UNPORTED[option]})
-        with pytest.raises(NotImplementedError, match=option):
-            Client(cfg)
+        from torrent_tpu.session.client import Client as RefClient
+        from torrent_tpu.session.client import ClientConfig as RefClientConfig
+
+        mine = Client(ClientConfig(hasher="cpu", **{option: ONCE_REFUSED[option]}))
+        theirs = RefClient(RefClientConfig(hasher="cpu", **{option: ONCE_REFUSED[option]}))
+        assert getattr(mine.config, option) == ONCE_REFUSED[option]
+        for attr in ("ip_filter", "proxy", "dns_prefs", "dht", "lsd", "utp"):
+            assert (getattr(mine, attr) is None) == (getattr(theirs, attr) is None), attr
 
     @pytest.mark.parametrize(
         "call",
         ["add_magnet", "resolve_mutable", "add_mutable_magnet", "require_signed"],
     )
     def test_entry_point_raises_not_implemented(self, call, tmp_path):
-        async def go():
-            c = Client(ClientConfig(host="127.0.0.1", hasher="cpu"))
+        from torrent_tpu.session.client import Client as RefClient
+        from torrent_tpu.session.client import ClientConfig as RefClientConfig
+
+        uri = "magnet:?xt=urn:btih:" + "ab" * 20
+
+        async def go(make, config):
+            c = make(config(host="127.0.0.1", hasher="cpu"))
             await c.start()
             try:
-                uri = "magnet:?xt=urn:btih:" + "ab" * 20
-                with pytest.raises(NotImplementedError):
-                    if call == "add_magnet":
-                        await c.add_magnet(uri, str(tmp_path))
-                    elif call == "resolve_mutable":
-                        await c.resolve_mutable(uri)
-                    elif call == "add_mutable_magnet":
-                        await c.add_mutable_magnet(uri, str(tmp_path))
-                    else:
-                        await c.add_torrent_bytes(b"d", str(tmp_path), require_signed=("x", b"k"))
+                calls = {
+                    "add_magnet": lambda: c.add_magnet(uri, str(tmp_path)),
+                    "resolve_mutable": lambda: c.resolve_mutable(uri),
+                    "add_mutable_magnet": lambda: c.add_mutable_magnet(uri, str(tmp_path)),
+                    "require_signed": lambda: c.add_torrent_bytes(b"d", str(tmp_path), require_signed=("x", b"k")),
+                }
+                got = await _outcome(calls[call])()
                 assert not c.torrents
+                return got
             finally:
                 await c.close()
 
-        run(go())
+        mine = run(go(Client, ClientConfig))
+        assert mine is not None and mine[0] != "NotImplementedError", mine
+        assert mine == run(go(RefClient, RefClientConfig))
 
 
 class TestNativeRc4:

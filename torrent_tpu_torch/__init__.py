@@ -12,7 +12,11 @@ BitTorrent session around it:
 - ``tools.make_torrent``: authoring on the same plane;
 - ``session`` (``Client``, ``Torrent``), ``net`` (peer wire, trackers)
   and ``server`` (the in-memory tracker): download, seed and resume a
-  torrent, every finished piece verified on the hash plane.
+  torrent, every finished piece verified on the hash plane;
+- ``codec.magnet``, ``session.metadata``, ``net.dht`` (BEP 5/44/46
+  with ``codec.signing`` and ``utils.ed25519``), ``net.utp`` and the
+  network helpers (``net.lsd``, ``natpmp``, ``upnp``, ``socks``,
+  ``ipfilter``, ``dnsprefs``): joining a swarm from a magnet.
 
 Entry points take ``device=None``, which means the GPU; without one
 they raise. Pass ``device="cpu"`` for the plain PyTorch path. The

@@ -193,8 +193,10 @@ def client_config_from_reference(cfg, device=None):
     """This package's ``session.client.ClientConfig`` from the
     reference's, field by field: ``hasher`` is mapped, the nested
     ``torrent`` config goes through :func:`torrent_config_from_reference`
-    and ``device`` is given here. A reference ``scheduler`` (on the
-    client or its torrent config) is refused with ``ValueError``."""
+    and ``device`` is given here. The discovery and transport options
+    (DHT, uTP, LSD, UPnP, NAT-PMP, BEP 34, the IP filter, the proxy) are
+    carried as they are. A reference ``scheduler`` (on the client or its
+    torrent config) is refused with ``ValueError``."""
     import dataclasses
 
     from torrent_tpu_torch.session.client import ClientConfig

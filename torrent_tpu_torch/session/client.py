@@ -4,13 +4,12 @@ Owns the listening socket and peer identity, routes inbound handshakes to
 torrents by info hash *before* replying so unknown torrents are dropped
 silently (client.ts:85-104), and shares one GPUVerifier across torrents
 when the 'gpu' hasher is selected (the default: on ``device``, where None
-means CUDA and a host without it refuses to start).
+means CUDA and a host without it refuses to start, before any TCP or
+UDP socket opens).
 
-The port of the JAX package's client. UPnP, NAT-PMP, the DHT, LSD, uTP,
-BEP 34 DNS preferences, the IP filter, the SOCKS5 proxy, magnets and
-signed-torrent checks are not ported yet: each option raises
-``NotImplementedError`` naming itself, instead of being dropped with a
-warning.
+The port of the JAX package's client, with every subsystem it has:
+UPnP, NAT-PMP, the DHT (BEP 5/44/46), LSD, uTP, BEP 34 DNS preferences,
+the IP filter, the SOCKS5 proxy, magnets and signed-torrent checks.
 
 Fixed vs the reference: config defaults are copied per-instance instead
 of mutating a shared defaults object (client.ts:47, SURVEY §8.2), and the
@@ -103,21 +102,6 @@ class Client:
         from torrent_tpu_torch.utils.ratelimit import TokenBucket
 
         self.config = config or ClientConfig()
-        # options whose subsystem is not ported yet: refused, never dropped
-        for option in (
-            "enable_upnp",
-            "enable_natpmp",
-            "enable_dht",
-            "enable_lsd",
-            "enable_utp",
-            "dns_tracker_prefs",
-            "ip_filter",
-            "proxy",
-        ):
-            if getattr(self.config, option):
-                raise NotImplementedError(
-                    f"ClientConfig.{option} is not supported by this port yet"
-                )
         self.torrents: dict[bytes, Torrent] = {}
         self._server: asyncio.AbstractServer | None = None
         self._verifier_cache: dict[int, object] = {}
@@ -753,9 +737,10 @@ class Client:
         refusal raises ValueError and nothing is registered.
         """
         if require_signed is not None:
-            raise NotImplementedError(
-                "require_signed: BEP 35 signing is not supported by this port yet"
-            )
+            from torrent_tpu_torch.codec import signing
+
+            signer, pub = require_signed
+            signing.ensure_signed(data, signer, pub)
         from torrent_tpu_torch.codec.metainfo import parse_any_metainfo
 
         parsed = parse_any_metainfo(data)
@@ -800,9 +785,59 @@ class Client:
 
         ``magnet`` is a ``codec.magnet.Magnet`` or a ``magnet:?...`` URI.
         """
-        raise NotImplementedError(
-            "add_magnet: magnets (metadata fetch) are not supported by this port yet"
+        from torrent_tpu_torch.codec.magnet import Magnet, parse_magnet
+        from torrent_tpu_torch.session.metadata import fetch_metadata
+
+        if self.port is None:
+            raise RuntimeError("Client.start() must be awaited before add_magnet()")
+        if isinstance(magnet, str):
+            magnet = parse_magnet(magnet)
+        if not isinstance(magnet, Magnet):
+            raise TypeError("magnet must be a Magnet or magnet URI string")
+        if (
+            magnet.mutable_key is not None
+            and magnet.info_hash is None
+            and magnet.info_hash_v2 is None
+        ):
+            # BEP 46: resolve the pointer first (no recursion — the
+            # resolved magnet carries a concrete btih)
+            return await self.add_mutable_magnet(magnet, storage)
+        if magnet.wire_hash in self.torrents:
+            raise ValueError("torrent already added")
+        # Throwaway peer id for the metadata connections: if the fetch
+        # socket's EOF hasn't been reaped by the seeder when the real
+        # download dials in, our own id would trip its duplicate-peer
+        # guard and the data connection would be dropped.
+        metainfo = await fetch_metadata(
+            magnet,
+            peer_id=generate_peer_id(),
+            port=self.external_port or self.port,
+            dht=self.dht,
+            ip_filter=self.ip_filter,
+            proxy=self.proxy,
         )
+        # BEP 53: the magnet's file selection is applied BEFORE the
+        # torrent starts (out-of-range indices dropped — the selection
+        # was minted against metadata the author may have mis-remembered;
+        # an empty valid set means "download nothing yet")
+        torrent = await self.add(
+            metainfo,
+            storage,
+            wanted_files=list(magnet.select_only)
+            if magnet.select_only is not None
+            else None,
+        )
+        for ws in magnet.web_seeds:
+            torrent.add_web_seed(ws)  # BEP 19 ws= params
+        if magnet.peer_addrs:
+            # Trackerless magnets (x.pe bootstrap): hand the known peers
+            # straight to the scheduler instead of waiting on an announce.
+            from torrent_tpu_torch.net.types import AnnouncePeer
+
+            torrent._connect_new_peers(
+                [AnnouncePeer(ip=h, port=p) for h, p in magnet.peer_addrs]
+            )
+        return torrent
 
     # ---------------------------------------------- BEP 46 mutable magnets
 
@@ -813,9 +848,25 @@ class Client:
         Raises ValueError when the magnet isn't mutable, the DHT is off,
         the item can't be found, or its payload is malformed.
         """
-        raise NotImplementedError(
-            "resolve_mutable: BEP 46 magnets are not supported by this port yet"
-        )
+        import hashlib as _hashlib
+
+        from torrent_tpu_torch.codec.magnet import Magnet, parse_magnet
+
+        if isinstance(magnet, str):
+            magnet = parse_magnet(magnet)
+        if not isinstance(magnet, Magnet) or magnet.mutable_key is None:
+            raise ValueError("not a mutable (urn:btpk) magnet")
+        if self.dht is None:
+            raise ValueError("mutable magnets need the DHT (enable_dht=True)")
+        target = _hashlib.sha1(magnet.mutable_key + magnet.mutable_salt).digest()
+        item = await self.dht.get_item(target, salt=magnet.mutable_salt)
+        if item is None or item.seq is None:
+            raise ValueError("mutable item not found in the DHT")
+        v = item.value
+        ih = v.get(b"ih") if isinstance(v, dict) else None
+        if not isinstance(ih, bytes) or len(ih) != 20:
+            raise ValueError("mutable item carries no valid 'ih' pointer")
+        return ih
 
     async def add_mutable_magnet(
         self, magnet, storage: Storage | StorageMethod | str
@@ -823,8 +874,16 @@ class Client:
         """BEP 46: resolve the key's current infohash, then join that
         swarm like any magnet (metadata over ut_metadata, BEP 53/19
         params preserved)."""
-        raise NotImplementedError(
-            "add_mutable_magnet: BEP 46 magnets are not supported by this port yet"
+        from dataclasses import replace
+
+        from torrent_tpu_torch.codec.magnet import Magnet, parse_magnet
+
+        if isinstance(magnet, str):
+            magnet = parse_magnet(magnet)
+        ih = await self.resolve_mutable(magnet)
+        return await self.add_magnet(
+            replace(magnet, info_hash=ih, mutable_key=None, mutable_salt=b""),
+            storage,
         )
 
     async def publish_mutable(

@@ -21,8 +21,8 @@ the wire protocol:
 ``info_hash`` is the truncated SHA-256 (what BEP 52 puts in the 68-byte
 handshake and tracker announces), and ``raw`` keeps ``info`` +
 ``piece layers``. In this package the adapter feeds ``Storage``'s
-piece-aligned layout and ``parallel/verify.py``'s v2 recheck; the rest of
-the session layer is not ported yet.
+piece-aligned layout, ``parallel/verify.py``'s v2 recheck and the
+session (``Torrent``, and ``session/metadata.py`` for btmh magnets).
 """
 
 from __future__ import annotations
