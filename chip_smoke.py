@@ -211,9 +211,55 @@ Phases (any failure exits non-zero, and no phase hides an error):
    MiB/s, the ingest flushes, pieces a flush and SHA-1 launches, the 11b
    wall with its launches, and phase 11's wall. Every client, DHT node
    and endpoint is closed, and no task is left pending.
+12. The tracker deployment and the serving tools (``server/shard.py``,
+   ``net/indexer.py``, ``utils/metrics.MetricsServer``, ``tools/serve.py``,
+   ``tools/stream.py``, ``tools/netbench.py``, ``scenario/``) on the card,
+   in this process and event loop, on loopback. 12a: ``start_service``
+   (8 shards, HTTP and UDP, its ``DHTNode`` with the indexer, the
+   timeline and SLO tier) is the persistent tracker; a fresh seeded
+   256 MiB file (phase 11's widths and depth) is seeded by a DHT-only
+   ``hasher="gpu"`` seed with no announce list, whose DHT announce the
+   indexer harvests into the sharded store; a ``hasher="gpu"`` leech
+   with no DHT, a ``MetricsServer`` and a ``BoxStreamServer`` joins a
+   magnet holding only the info hash and the tracker's URL (metadata
+   over BEP 9), and while it downloads one client streams a Range from
+   128 MiB to the end, then the whole file from 0. Every streamed byte
+   must equal the payload, every read of the leech's storage must lie
+   in pieces that already passed ``Torrent._verify_batch_device`` (all
+   1024 do, through the SHA-1 kernel, with no CPU-fallback launch and
+   no piece-sized input to the session's ``hashlib``), the scheduler's
+   recheck of the leech's storage (``verify_library_sched`` through a
+   ``HashPlaneScheduler(hasher="gpu")``) must be all True with SHA-1
+   launches, the tracker's ``/metrics`` must count announces and
+   indexed peers and carry the announce-latency histogram, its
+   ``/v1/health`` must answer 200 and ready, and the leech's
+   ``/metrics`` must show every piece had and its ``/v1/swarm`` parse.
+   12b: phase 5's pure-v2 torrent (1 MiB pieces) announced to the same
+   tracker goes from a ``hasher="gpu"`` seed to a ``hasher="gpu"``
+   leech, each file streamed while it downloads: the bytes must equal
+   the files, and the SHA-256 row and merkle kernels must launch with no
+   CPU-fallback launch. 12c: ``tools/netbench._swarm`` in fanout mode,
+   4 leeches of a 64 MiB payload at 256 KiB pieces with the default
+   ``"gpu"`` hasher: every leech completes with its 256 pieces through
+   ``_verify_batch_device``, and the SHA-1 kernel launches once a flush
+   at least (a flush may carry several pieces: fewer than 4 x 256
+   launches), with no CPU-fallback launch. 12d: every scenario of
+   ``scenario.library.SCENARIOS`` runs twice from its seed: the two
+   runs' canonical bytes must be equal and every verdict pass (the
+   scenario plane is a simulation on a virtual clock; it runs no kernel
+   by design). Launch counts are 0 just before
+   each sub-path and read just after it. Printed beside the card's name
+   and power limit: the authoring and the seed's recheck, the time for
+   the indexer to feed the store, to the first metadata byte and to the
+   registration, the download wall and MiB/s with its flushes and
+   launches, each stream response's head, first byte and wall, the
+   recheck's wall and launches, the v2 stream's wall and launches, each
+   netbench leech's MiB/s, each scenario's wall and phase 12's wall.
+   Every client, server and the deployment are closed, and no task is
+   left pending.
 
 The line before the last is the kernels' JSON record (its ``launches``
-are phases 4 and 5's; phases 7 to 11 print their own); the last line is
+are phases 4 and 5's; phases 7 to 12 print their own); the last line is
 ``{"ok": true, "device": {...}}``. The page cache holds the payload when
 it is rechecked (it was just written), so the end-to-end rates measure
 reads from memory, padding, copies and the kernels, not a disk.
@@ -1429,6 +1475,50 @@ def counting(ingest: dict, real):
     return wrapper
 
 
+class KernelCounts:
+    """The launch counts of a path: each kernel wrapper's ``launches``,
+    and the calls of the plain versions the wrappers run on a CPU tensor
+    (CPU-fallback launches), counted by wrappers ``install`` puts in the
+    ops modules and ``uninstall`` removes (phases 11 and 12)."""
+
+    PLAIN = (("sha1_cuda", "sha1_pieces_torch"), ("sha256_cuda", "sha256_pieces_torch"),
+             ("sha256_cuda", "sha256_merkle_torch"), ("sha256_cuda", "sha256_pairs_torch"))
+
+    def install(self) -> "KernelCounts":
+        from torrent_tpu_torch.ops import sha1_cuda, sha256_cuda
+
+        mods = {"sha1_cuda": sha1_cuda, "sha256_cuda": sha256_cuda}
+        self.kernels = {
+            "sha1_cuda": sha1_cuda.sha1_pieces_cuda,
+            "sha256_cuda": sha256_cuda.sha256_pieces_cuda,
+            "sha256_merkle_cuda": sha256_cuda.sha256_merkle_cuda,
+        }
+        self.fallbacks = 0
+        self.originals = [(mods[m], name, getattr(mods[m], name)) for m, name in self.PLAIN]
+        for mod, name, real in self.originals:
+            setattr(mod, name, self._counting(real))
+        return self
+
+    def _counting(self, real):
+        def wrapper(*args, **kwargs):
+            self.fallbacks += 1
+            return real(*args, **kwargs)
+
+        return wrapper
+
+    def uninstall(self) -> None:
+        for mod, name, real in self.originals:
+            setattr(mod, name, real)
+
+    def reset(self) -> None:
+        for k in self.kernels.values():
+            k.launches = 0
+        self.fallbacks = 0
+
+    def counts(self) -> dict:
+        return {**{name: k.launches for name, k in self.kernels.items()}, "cpu_fallback": self.fallbacks}
+
+
 def session_phase(tmp: str, lib_torrents: list, v2_meta, card: str) -> dict:
     """Phase 10: the BitTorrent session on the card (see the module
     docstring). Returns each sub-path's launches per kernel."""
@@ -1684,7 +1774,6 @@ def magnet_phase(tmp: str, v2_meta, rng, card: str) -> dict:
     from torrent_tpu_torch.net import extension as ext
     from torrent_tpu_torch.net.dht import DHTNode
     from torrent_tpu_torch.net.utp import _UtpWriter
-    from torrent_tpu_torch.ops import sha1_cuda, sha256_cuda
     from torrent_tpu_torch.parallel.verify import verify_pieces
     from torrent_tpu_torch.session import torrent as torrent_mod
     from torrent_tpu_torch.session.client import Client, ClientConfig
@@ -1694,35 +1783,8 @@ def magnet_phase(tmp: str, v2_meta, rng, card: str) -> dict:
     from torrent_tpu_torch.tools.make_torrent import make_torrent
     from torrent_tpu_torch.utils import ed25519
 
-    kernels = {
-        "sha1_cuda": sha1_cuda.sha1_pieces_cuda,
-        "sha256_cuda": sha256_cuda.sha256_pieces_cuda,
-        "sha256_merkle_cuda": sha256_cuda.sha256_merkle_cuda,
-    }
-    # the plain versions the wrappers run on a CPU tensor: a call of one
-    # on the path is a CPU-fallback launch
-    plain = [(sha1_cuda, "sha1_pieces_torch"), (sha256_cuda, "sha256_pieces_torch"),
-             (sha256_cuda, "sha256_merkle_torch"), (sha256_cuda, "sha256_pairs_torch")]
-    fallbacks = [0]
-
-    def reset() -> None:
-        for k in kernels.values():
-            k.launches = 0
-        fallbacks[0] = 0
-
-    def counts() -> dict:
-        return {**{name: k.launches for name, k in kernels.items()}, "cpu_fallback": fallbacks[0]}
-
-    def counting_plain(real):
-        def wrapper(*args, **kwargs):
-            fallbacks[0] += 1
-            return real(*args, **kwargs)
-
-        return wrapper
-
-    originals = [(mod, name, getattr(mod, name)) for mod, name in plain]
-    for mod, name, real in originals:
-        setattr(mod, name, counting_plain(real))
+    launch_counts = KernelCounts().install()
+    reset, counts = launch_counts.reset, launch_counts.counts
 
     d = os.path.join(tmp, "magnet")
     src = os.path.join(d, "src")
@@ -1908,8 +1970,7 @@ def magnet_phase(tmp: str, v2_meta, rng, card: str) -> dict:
     try:
         asyncio.run(go())
     finally:
-        for mod, name, real in originals:
-            setattr(mod, name, real)
+        launch_counts.uninstall()
     out["phase_s"] = time.perf_counter() - t0
     mib = MAGNET_BYTES / 2**20
     size = f"{mib:.0f} MiB ({n} x {PIECE >> 10} KiB)"
@@ -1951,6 +2012,408 @@ def magnet_phase(tmp: str, v2_meta, rng, card: str) -> dict:
         f"_UtpWriter), {out['gpu_pieces']} pieces through the SHA-1 kernel with no CPU-fallback launch "
         f"(hashlib recheck all True); the btmh magnet's files equal the seed's (SHA-256 and merkle launches); "
         f"BEP 46 resolved the published hash ({out['bep46_stored']} nodes stored it)"
+    )
+    return out["launches"]
+
+
+SERVE_BYTES = 256 << 20  # 12a's file: 1024 pieces of 256 KiB, phase 11's width and depth
+SERVE_SHARDS = 8  # the sharded store's shards (start_service's default)
+SERVE_WAIT_S = 600  # the longest a phase-12 transfer or stream may take
+SERVE_RANGE_FROM = 128 << 20  # 12a's first stream request: bytes=128 MiB- (mid-file seek)
+NETBENCH_BYTES = 64 << 20  # 12c's payload: 256 pieces of 256 KiB a leech
+NETBENCH_LEECHES = 4  # 12c's fanout
+
+
+def _http_get(port: int, path: str, timeout: float = 30) -> tuple:
+    """(status, body) of one GET over loopback (the smoke's own client)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _stream_get(port: int, path: str, lo: int, expect) -> dict:
+    """One streamed GET from byte ``lo`` (a Range request when lo > 0),
+    read as it arrives and compared with ``expect[lo:]``; returns the
+    status, the seconds to the response head and to the first body
+    byte, the wall, the bytes read and whether they all matched."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=SERVE_WAIT_S)
+    t0 = time.perf_counter()
+    try:
+        conn.request("GET", path, headers={"Range": f"bytes={lo}-"} if lo else {})
+        resp = conn.getresponse()
+        head_s = time.perf_counter() - t0
+        first_s, got, equal = None, 0, True
+        while True:
+            chunk = resp.read1(1 << 20)
+            if not chunk:
+                break
+            if first_s is None:
+                first_s = time.perf_counter() - t0
+            equal = equal and chunk == expect[lo + got : lo + got + len(chunk)]
+            got += len(chunk)
+        return {"status": resp.status, "head_s": head_s, "first_s": first_s,
+                "wall_s": time.perf_counter() - t0, "bytes": got, "equal": equal}
+    finally:
+        conn.close()
+
+
+def serving_phase(tmp: str, v2_meta, rng, card: str) -> dict:
+    """Phase 12: the tracker deployment and the serving tools on the card
+    (see the module docstring). Returns each sub-path's launches."""
+    import asyncio
+
+    from torrent_tpu_torch.codec.magnet import Magnet
+    from torrent_tpu_torch.codec.metainfo import parse_metainfo
+    from torrent_tpu_torch.codec.metainfo_v2 import encode_metainfo_v2, parse_metainfo_v2
+    from torrent_tpu_torch.models import merkle
+    from torrent_tpu_torch.net import extension as ext
+    from torrent_tpu_torch.parallel.bulk import verify_library_sched
+    from torrent_tpu_torch.scenario import canonical_bytes, run_scenario
+    from torrent_tpu_torch.scenario.library import SCENARIOS, get
+    from torrent_tpu_torch.sched import HashPlaneScheduler
+    from torrent_tpu_torch.session import torrent as torrent_mod
+    from torrent_tpu_torch.session.client import Client, ClientConfig
+    from torrent_tpu_torch.session.torrent import Torrent, TorrentConfig, TorrentState
+    from torrent_tpu_torch.tools import netbench
+    from torrent_tpu_torch.tools.make_torrent import make_torrent
+    from torrent_tpu_torch.tools.serve import start_service
+    from torrent_tpu_torch.tools.stream import BoxStreamServer, content_files
+    from torrent_tpu_torch.utils.metrics import MetricsServer
+
+    launch_counts = KernelCounts().install()
+    reset, counts = launch_counts.reset, launch_counts.counts
+
+    d = os.path.join(tmp, "serving")
+    src = os.path.join(d, "src")
+    dirs = {name: os.path.join(d, name) for name in ("gpu", "v2")}
+    for p in (src, *dirs.values()):
+        os.makedirs(p)
+    payload_path = os.path.join(src, "serve.bin")
+    write_random(payload_path, SERVE_BYTES, rng)
+    with open(payload_path, "rb") as f:
+        payload = f.read()
+    t0 = time.perf_counter()
+    meta = parse_metainfo(make_torrent(payload_path, "", piece_length=PIECE, hasher="gpu"))
+    out: dict = {"launches": {}, "author_s": time.perf_counter() - t0}
+    n = meta.info.num_pieces
+    ih = meta.info_hash.hex()
+    check(n == SERVE_BYTES // PIECE and meta.announce == "", f"12a torrent: {n} pieces, announce {meta.announce!r}")
+    piece_of = {digest: i for i, digest in enumerate(meta.info.pieces)}
+    per = NETBENCH_BYTES // PIECE  # 12c's pieces a leech
+
+    # the smoke's own instruments around the package: the ingest flushes
+    # and which pieces passed them, the session's hashlib, the first
+    # metadata byte, and every read of the leech's storage
+    ingest: dict = {}
+    verified: set = set()
+    served = {"reads": 0, "bytes": 0, "unverified": []}
+    host_folds = [0]
+    first_meta = [None]
+    real_v1, real_v2 = Torrent._verify_batch_device, Torrent._verify_batch_device_v2
+    real_fold = merkle.piece_root_cpu
+    real_add = ext.MetadataAssembler.add
+    counted_v1 = counting(ingest, real_v1)
+
+    def verifying(self, pieces, expected):
+        ok = counted_v1(self, pieces, expected)
+        verified.update(piece_of[e] for e, good in zip(expected, ok) if good)
+        return ok
+
+    def counting_fold(data, pad):
+        host_folds[0] += 1
+        return real_fold(data, pad)
+
+    def first_byte(self, msg):
+        if first_meta[0] is None:
+            first_meta[0] = time.perf_counter()
+        return real_add(self, msg)
+
+    def checked_reads(storage):
+        """Wraps one torrent's ``storage.get``: every range read must lie
+        in pieces that already passed ``_verify_batch_device``."""
+        real_get = storage.get
+
+        def get(offset, length):
+            pieces = range(offset // PIECE, (offset + max(length, 1) - 1) // PIECE + 1)
+            missing = [i for i in pieces if i not in verified]
+            if missing:
+                served["unverified"].append((offset, length, missing[:4]))
+            served["reads"] += 1
+            served["bytes"] += length
+            return real_get(offset, length)
+
+        storage.get = get
+
+    cfg = TorrentConfig(choke_interval=0.15, announce_retry=1.0, dht_interval=0.5)
+
+    async def go():
+        handle = await start_service(host="127.0.0.1", http_port=0, udp_port=0, dht_port=0,
+                                     shards=SERVE_SHARDS, slo=True, interval=1)
+        url = f"http://127.0.0.1:{handle.http_port}/announce"
+        clients, servers = [], []
+
+        async def started(**kw) -> Client:
+            c = Client(ClientConfig(host="127.0.0.1", torrent=cfg, **kw))
+            clients.append(c)
+            await c.start()
+            return c
+
+        try:
+            # -- 12a: a magnet joining through the indexer-fed sharded tracker
+            seed = await started(hasher="gpu", enable_dht=True, dht_bootstrap=(("127.0.0.1", handle.dht.port),))
+            reset()
+            t1 = time.perf_counter()
+            ts = await seed.add(meta, src)
+            out["seed_recheck_s"] = time.perf_counter() - t1
+            out["launches"]["seed recheck"] = counts()
+            check(ts.state == TorrentState.SEEDING and ts.bitfield.count() == n,
+                  f"12a seed: {ts.state} with {ts.bitfield.count()}/{n} pieces")
+            check("announce" not in {task.get_name() for task in ts._tasks}, "12a seed: runs a tracker announce task")
+            check(out["launches"]["seed recheck"]["sha1_cuda"] > 0, "12a seed: the recheck launched no SHA-1 kernel")
+            t1 = time.perf_counter()
+            while handle.store.metrics_snapshot()["indexed"] < 1:
+                check(time.perf_counter() - t1 < 60, f"12a: the indexer fed no peer in 60 s: {handle.indexer.snapshot()}")
+                await asyncio.sleep(0.1)
+            out["indexed_s"] = time.perf_counter() - t1
+            scraped = handle.store.scrape([meta.info_hash])[0]
+            check(scraped[1] + scraped[3] >= 1, f"12a: the store's scrape shows no peer: {scraped}")
+
+            leech = await started(hasher="gpu")
+            metrics = await MetricsServer(leech).start()
+            box = await BoxStreamServer(leech).start()
+            servers.extend((metrics, box))
+            proxy = CountingHashlib()
+            Torrent._verify_batch_device = verifying
+            torrent_mod.hashlib = proxy
+            ext.MetadataAssembler.add = first_byte
+            reset()
+            try:
+                t1 = time.perf_counter()
+                tl = await leech.add_magnet(Magnet(info_hash=meta.info_hash, trackers=(url,)), dirs["gpu"])
+                out["registered_s"] = time.perf_counter() - t1
+                ext.MetadataAssembler.add = real_add
+                check(first_meta[0] is not None, "12a: add_magnet returned with no metadata byte read")
+                out["meta_s"] = first_meta[0] - t1
+                checked_reads(tl.storage)
+                done = asyncio.ensure_future(tl.on_complete.wait())
+                path = f"/{ih}/0"
+                out["range"] = await asyncio.to_thread(_stream_get, box.port, path, SERVE_RANGE_FROM, payload)
+                out["whole"] = await asyncio.to_thread(_stream_get, box.port, path, 0, payload)
+                await asyncio.wait_for(done, SERVE_WAIT_S)
+                out["gpu_wall_s"] = time.perf_counter() - t1
+            finally:
+                Torrent._verify_batch_device = real_v1
+                torrent_mod.hashlib = hashlib
+                ext.MetadataAssembler.add = real_add
+            out["launches"]["gpu download"] = counts()
+            for key, lo in (("range", SERVE_RANGE_FROM), ("whole", 0)):
+                r = out[key]
+                check(r["status"] == (206 if lo else 200) and r["bytes"] == SERVE_BYTES - lo and r["equal"],
+                      f"12a stream {key}: {r}")
+            check(not served["unverified"], f"12a: reads of unverified pieces {served['unverified'][:4]}")
+            check(served["bytes"] >= 2 * SERVE_BYTES - SERVE_RANGE_FROM, f"12a: the stream read {served['bytes']} bytes")
+            flushes, pieces, out["gpu_flush_s"] = ingest.get(id(tl), [0, 0, 0.0])
+            out["gpu_flushes"], out["gpu_pieces"] = flushes, pieces
+            check(pieces >= n and len(verified) == n,
+                  f"12a leech: {pieces} pieces through _verify_batch_device, {len(verified)} of {n} verified")
+            check(proxy.piece_sized == 0, f"12a leech: {proxy.piece_sized} piece-sized hashlib inputs in the session")
+            got = out["launches"]["gpu download"]
+            check(got["sha1_cuda"] >= n and got["cpu_fallback"] == 0, f"12a leech: launches {got}")
+
+            status, body = await asyncio.to_thread(_http_get, metrics.port, "/metrics")
+            check(status == 200 and re.search(
+                rf'torrent_tpu_torrent_pieces_have{{info_hash="{ih}",[^}}]*}} {n}\n', body.decode()),
+                "12a leech /metrics: pieces_have is not the piece count")
+            status, body = await asyncio.to_thread(_http_get, metrics.port, "/v1/swarm")
+            check(status == 200 and "counts" in json.loads(body), "12a leech /v1/swarm does not parse")
+            status, body = await asyncio.to_thread(_http_get, handle.http_port, "/metrics")
+            text = body.decode()
+            announces = int(re.search(r"^torrent_tpu_tracker_announces_total (\d+)$", text, re.M).group(1))
+            indexed = int(re.search(r"^torrent_tpu_tracker_indexed_total (\d+)$", text, re.M).group(1))
+            check(status == 200 and announces >= 1 and indexed >= 1
+                  and "torrent_tpu_tracker_announce_seconds_bucket" in text,
+                  f"12a tracker /metrics: announces {announces}, indexed {indexed}")
+            out["tracker_announces"], out["tracker_indexed"] = announces, indexed
+            status, body = await asyncio.to_thread(_http_get, handle.http_port, "/v1/health")
+            health = json.loads(body)
+            check(status == 200 and health["ready"], f"12a tracker /v1/health: {status} {health}")
+
+            sched = HashPlaneScheduler(hasher="gpu")
+            await sched.start()
+            try:
+                reset()
+                t1 = time.perf_counter()
+                res = await verify_library_sched([(tl.storage, tl.metainfo.info)], sched, tenant="recheck")
+                out["recheck_s"] = time.perf_counter() - t1
+                out["launches"]["recheck"] = counts()
+            finally:
+                await sched.close()
+            check(bool(res.bitfields[0].all()), "12a: the scheduler recheck of the leech's storage is not all True")
+            got = out["launches"]["recheck"]
+            check(got["sha1_cuda"] > 0 and got["cpu_fallback"] == 0, f"12a recheck: launches {got}")
+
+            # -- 12b: a pure-v2 torrent through the same tracker, streamed while it downloads
+            m2 = parse_metainfo_v2(encode_metainfo_v2(v2_meta.info, v2_meta.piece_layers, url))
+            v2_seed = await started(hasher="gpu")
+            check((await v2_seed.add(m2, tmp)).state == TorrentState.SEEDING, "12b v2 seed is not seeding")
+            v2_leech = await started(hasher="gpu")
+            box2 = await BoxStreamServer(v2_leech).start()
+            servers.append(box2)
+            Torrent._verify_batch_device_v2 = counting(ingest, real_v2)
+            merkle.piece_root_cpu = counting_fold
+            reset()
+            try:
+                t1 = time.perf_counter()
+                t2 = await v2_leech.add(m2, dirs["v2"])
+                out["v2_files"] = []
+                for i, name, _, length in content_files(t2):
+                    with open(os.path.join(tmp, v2_meta.info.name, name), "rb") as f:
+                        expect = f.read()
+                    r = await asyncio.to_thread(_stream_get, box2.port, f"/{t2.metainfo.info_hash.hex()}/{i}", 0, expect)
+                    check(r["status"] == 200 and r["bytes"] == length == len(expect) and r["equal"],
+                          f"12b stream of {name}: {r}")
+                    out["v2_files"].append(r)
+                await asyncio.wait_for(t2.on_complete.wait(), SERVE_WAIT_S)
+                out["v2_wall_s"] = time.perf_counter() - t1
+            finally:
+                Torrent._verify_batch_device_v2 = real_v2
+                merkle.piece_root_cpu = real_fold
+            out["launches"]["v2 stream"] = counts()
+            out["v2_flushes"], out["v2_device_pieces"], _ = ingest.get(id(t2), [0, 0, 0.0])
+            out["v2_host_pieces"], out["v2_pieces"] = host_folds[0], t2.info.num_pieces
+            got = out["launches"]["v2 stream"]
+            check(got["sha256_cuda"] > 0 and got["sha256_merkle_cuda"] > 0 and got["cpu_fallback"] == 0,
+                  f"12b v2 stream: launches {got}")
+            check(out["v2_device_pieces"] + out["v2_host_pieces"] >= out["v2_pieces"],
+                  f"12b: {out['v2_device_pieces']} + {out['v2_host_pieces']} pieces verified of {out['v2_pieces']}")
+        finally:
+            for s in servers:
+                s.close()
+            for c in clients:
+                await c.close()
+            await handle.close()
+
+        # -- 12c: netbench's fanout on the card (its own tracker and clients)
+        added, finished, nb_ingest = {}, {}, {}
+        counted_nb = counting(nb_ingest, real_v1)
+        real_client_add = Client.add
+
+        async def timed_add(self, *args, **kwargs):
+            t = await real_client_add(self, *args, **kwargs)
+            added[id(t)] = time.perf_counter()
+            return t
+
+        def finishing(self, pieces, expected):
+            ok = counted_nb(self, pieces, expected)
+            finished[id(self)] = time.perf_counter()
+            return ok
+
+        Client.add = timed_add
+        Torrent._verify_batch_device = finishing
+        reset()
+        try:
+            out["netbench"] = await netbench._swarm(NETBENCH_BYTES, PIECE, NETBENCH_LEECHES, utp=False)
+        finally:
+            Client.add = real_client_add
+            Torrent._verify_batch_device = real_v1
+        out["launches"]["netbench"] = counts()
+        out["netbench_leech_s"] = sorted(finished[k] - added[k] for k in finished)
+        leech_pieces = sorted(v[1] for v in nb_ingest.values())
+        out["netbench_flushes"] = sum(v[0] for v in nb_ingest.values())
+        out["netbench_pieces"] = sum(leech_pieces)
+        check(len(leech_pieces) == NETBENCH_LEECHES and all(p >= per for p in leech_pieces),
+              f"12c: pieces through _verify_batch_device per leech {leech_pieces}")
+        # a flush is one launch; with several peers a leech's flush can
+        # carry more than one piece, so launches may be fewer than pieces
+        got = out["launches"]["netbench"]
+        check(got["sha1_cuda"] >= out["netbench_flushes"] and got["cpu_fallback"] == 0,
+              f"12c netbench: launches {got} for {out['netbench_flushes']} flushes")
+
+        await asyncio.sleep(0)
+        pending = [t for t in asyncio.all_tasks() if t is not asyncio.current_task() and not t.done()]
+        check(not pending, f"tasks left pending: {[t.get_name() for t in pending]}")
+
+    t0 = time.perf_counter()
+    try:
+        asyncio.run(go())
+    finally:
+        launch_counts.uninstall()
+
+    # -- 12d: the scenario library, twice a scenario (device-free)
+    out["scenarios"] = {}
+    for name in sorted(SCENARIOS):
+        t1 = time.perf_counter()
+        runs = [run_scenario(get(name)) for _ in range(2)]
+        wall = (time.perf_counter() - t1) / 2
+        canon = [canonical_bytes(r["verdict"], r["timeline"]) for r in runs]
+        check(canon[0] == canon[1], f"12d {name}: the two runs' canonical bytes differ")
+        check(all(r["verdict"]["pass"] for r in runs), f"12d {name}: {runs[0]['verdict']['reasons']}")
+        out["scenarios"][name] = wall
+    out["phase_s"] = time.perf_counter() - t0
+
+    mib = SERVE_BYTES / 2**20
+    size = f"{mib:.0f} MiB ({n} x {PIECE >> 10} KiB)"
+    log(
+        f"time: serve 12a authoring of {size} s={out['author_s']:.3f}; seed recheck s={out['seed_recheck_s']:.3f} "
+        f"sha1_cuda launches={out['launches']['seed recheck']['sha1_cuda']}; the indexer fed the store "
+        f"in s={out['indexed_s']:.3f} {card}"
+    )
+    log(
+        f"time: serve 12a magnet via the sharded tracker: add_magnet to the first metadata byte "
+        f"s={out['meta_s']:.3f}, to the registration s={out['registered_s']:.3f} {card}"
+    )
+    log(
+        f"time: serve 12a download {size} gpu wall s={out['gpu_wall_s']:.3f} MiB/s={mib / out['gpu_wall_s']:.1f}; "
+        f"ingest flushes={out['gpu_flushes']} pieces={out['gpu_pieces']} "
+        f"(ms a flush={1e3 * out['gpu_flush_s'] / max(1, out['gpu_flushes']):.2f}) "
+        f"sha1_cuda launches={out['launches']['gpu download']['sha1_cuda']} "
+        f"cpu fallback launches={out['launches']['gpu download']['cpu_fallback']} {card}"
+    )
+    for key, label in (("range", f"bytes={SERVE_RANGE_FROM}-"), ("whole", "from 0")):
+        r = out[key]
+        log(
+            f"time: serve 12a stream GET {label}: head s={r['head_s']:.3f} first byte s={r['first_s']:.3f} "
+            f"wall s={r['wall_s']:.3f} MiB/s={r['bytes'] / 2**20 / r['wall_s']:.1f} {card}"
+        )
+    log(
+        f"time: serve 12a scheduler recheck of the leech's storage s={out['recheck_s']:.3f} "
+        f"launches {out['launches']['recheck']}; tracker announces={out['tracker_announces']} "
+        f"indexed={out['tracker_indexed']} {card}"
+    )
+    v2_bytes = sum(s for _, s in MULTI_FILES)
+    log(
+        f"time: serve 12b pure-v2 stream of {v2_bytes} bytes at 1 MiB pieces wall s={out['v2_wall_s']:.3f} "
+        f"MiB/s={v2_bytes / 2**20 / out['v2_wall_s']:.1f}; first bytes s="
+        f"{[round(r['first_s'], 3) for r in out['v2_files']]}; {out['v2_pieces']} pieces: "
+        f"{out['v2_device_pieces']} through _verify_batch_device_v2 in {out['v2_flushes']} flushes, "
+        f"{out['v2_host_pieces']} folded on the host; launches {out['launches']['v2 stream']} {card}"
+    )
+    nb = out["netbench"]
+    log(
+        f"time: serve 12c netbench fanout {NETBENCH_LEECHES} leeches x {NETBENCH_BYTES >> 20} MiB "
+        f"({per} x {PIECE >> 10} KiB) s={nb['seconds']} aggregate MiB/s={nb['value']}; each leech MiB/s="
+        f"{[round(NETBENCH_BYTES / 2**20 / s, 1) for s in out['netbench_leech_s']]}; "
+        f"ingest flushes={out['netbench_flushes']} pieces={out['netbench_pieces']}; "
+        f"launches {out['launches']['netbench']} {card}"
+    )
+    log(
+        "time: serve 12d scenarios (device-free) s a run="
+        f"{ {k: round(v, 3) for k, v in out['scenarios'].items()} } {card}"
+    )
+    log(f"time: serve phase 12 wall s={out['phase_s']:.3f} {card}")
+    log(
+        f"phase 12: a magnet joined through the indexer-fed sharded tracker ({out['gpu_pieces']} pieces through "
+        f"the SHA-1 kernel, no CPU-fallback launch), streamed bytes equal the payload and came from verified pieces "
+        f"only, the scheduler recheck is all True; the v2 stream's files are equal (SHA-256 and merkle launches); "
+        f"netbench's {NETBENCH_LEECHES} leeches completed; {len(SCENARIOS)} scenarios replayed bit-identically"
     )
     return out["launches"]
 
@@ -2489,6 +2952,9 @@ def main() -> dict:
 
         # ----------------------------------------------------------- 11
         magnet_launches = magnet_phase(tmp, v2_multi_meta, rng, card)
+
+        # ----------------------------------------------------------- 12
+        serving_launches = serving_phase(tmp, v2_multi_meta, rng, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2655,6 +3121,7 @@ def main() -> dict:
     log(f"phase 9: bridge path launches {bridge_launches}")
     log(f"phase 10: session path launches {session_launches}")
     log(f"phase 11: magnet path launches {magnet_launches}")
+    log(f"phase 12: serving path launches {serving_launches}")
     log(json.dumps(kernels))
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "torrent_tpu"))
     check(not leaked, f"the port imported {leaked}")

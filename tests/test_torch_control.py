@@ -1,9 +1,9 @@
 """The port's scheduler autopilot (torrent_tpu_torch/sched/control.py),
 against the reference.
 
-The reference's tests/test_control.py, ported (its
-session ``MetricsServer``, ``top``, bridge and ``bench controller``
-cases wait for later slices; ROADMAP.md lists them). Covers the
+The reference's tests/test_control.py, ported (its ``top``,
+bridge and ``bench controller`` cases wait for later slices; ROADMAP.md
+lists them). Covers the
 observe→act loop:
 
 * the pure decision core: grow/shrink laws, hysteresis (a flapping
@@ -888,6 +888,44 @@ class TestSurfaces:
         assert 'torrent_tpu_control_lane_target{lane="sha1/64"' in text
         # defensive on partial/empty snapshots
         prom_lint(render_control_metrics({}))
+
+    def test_metrics_server_carries_control_series(self):
+        """The SESSION /metrics endpoint (MetricsServer) carries
+        torrent_tpu_control_* when given a controller — the 'both
+        /metrics endpoints' half the bridge test doesn't cover."""
+        import urllib.request
+
+        from torrent_tpu_torch.session.client import Client, ClientConfig
+        from torrent_tpu_torch.utils.metrics import MetricsServer
+
+        async def go():
+            sched = HashPlaneScheduler(
+                SchedulerConfig(batch_target=4, flush_deadline=0.01),
+                hasher="cpu",
+            )
+            await sched.start()
+            pilot = SchedulerAutopilot(sched, ControlConfig(enabled=True))
+            client = Client(ClientConfig(host="127.0.0.1", hasher="cpu"))
+            server = await MetricsServer(
+                client, scheduler=sched, controller=pilot
+            ).start()
+            try:
+                await sched.submit("t", [b"m" * 64])
+                pilot.tick()
+                text = await asyncio.to_thread(
+                    lambda: urllib.request.urlopen(
+                        f"http://127.0.0.1:{server.port}/metrics", timeout=10
+                    ).read().decode()
+                )
+            finally:
+                server.close()
+                await sched.close()
+            return text
+
+        text = run(go())
+        prom_lint(text)
+        assert "torrent_tpu_control_enabled 1" in text
+        assert "torrent_tpu_sched_queue_pieces" in text
 
 
 # ------------------------------------------------------- differential

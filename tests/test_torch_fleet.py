@@ -1,9 +1,9 @@
 """The port's fleet observability plane (torrent_tpu_torch/obs/fleet and
 its fabric integration), against the reference.
 
-The reference's tests/test_fleet.py, ported (its session metrics
-endpoint, bridge route, ``top`` and CLI-result cases wait for later
-slices): heartbeat-carried obs digests, mergeable histogram snapshots,
+The reference's tests/test_fleet.py, ported (its bridge route, ``top``
+and CLI-result cases wait for later slices): the session metrics
+endpoint, heartbeat-carried obs digests, mergeable histogram snapshots,
 the swarm rollup's two-level bottleneck attribution and straggler
 scoreboard, overflow hardening of the all-gather heartbeat, and the
 ``FleetObsServer`` surface. ``TestDifferential`` feeds both packages'
@@ -439,6 +439,47 @@ class TestFleetObsServer:
         run(go())
 
 
+
+class TestSessionMetricsEndpoint:
+    def test_metrics_server_carries_fleet_series(self, tmp_path):
+        """The session /metrics endpoint (MetricsServer with a fabric
+        executor wired in) serves the same fleet rollup the bridge
+        does: both /metrics endpoints carry it."""
+        import urllib.request
+
+        from test_metrics import prom_lint
+
+        from torrent_tpu_torch.session.client import Client, ClientConfig
+        from torrent_tpu_torch.utils.metrics import MetricsServer
+
+        items = make_library(tmp_path, [6])
+
+        async def go():
+            sched = await cpu_sched().start()
+            try:
+                ex = build_fabric_executor(
+                    items, sched, nproc=1, pid=0, unit_bytes=8 * PLEN
+                )
+                await ex.run()
+                c = Client(ClientConfig(host="127.0.0.1", hasher="cpu"))
+                m = await MetricsServer(c, scheduler=sched, fabric=ex).start()
+                try:
+                    def scrape():
+                        with urllib.request.urlopen(
+                            f"http://127.0.0.1:{m.port}/metrics", timeout=10
+                        ) as r:
+                            return r.read().decode()
+
+                    return await asyncio.to_thread(scrape)
+                finally:
+                    m.close()
+            finally:
+                await sched.close()
+
+        text = run(go())
+        prom_lint(text)
+        assert "torrent_tpu_fleet_reporting 1" in text
+        assert "torrent_tpu_fabric_state" in text
 
 
 class TestDifferential:

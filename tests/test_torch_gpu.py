@@ -1005,3 +1005,150 @@ def test_btmh_magnet_on_card(cuda, tmp_path):
     for rel, blob in files.items():
         assert (leech_dir / rel).read_bytes() == blob, rel
     assert counts["sha256_pieces_cuda"] > 0 and counts["sha256_merkle_cuda"] > 0, counts
+
+
+# ------------------------------------------------- tracker deployment
+
+
+def _get(url, headers=None):
+    import urllib.request
+
+    req = urllib.request.Request(url, headers=headers or {})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.status, r.read()
+
+
+def test_magnet_through_the_sharded_tracker_streamed_on_card(cuda, tmp_path):
+    """The persistent tracker on the card's path: a DHT-only seed is
+    harvested by ``start_service``'s indexer into the sharded store; a
+    leech with only the info hash and the tracker's URL fetches the
+    metadata, streams a Range from mid-file while it downloads, verifies
+    every piece through the SHA-1 kernel, and its scheduler recheck
+    launches the kernel again."""
+    import asyncio
+
+    from torrent_tpu_torch.codec.magnet import Magnet
+    from torrent_tpu_torch.codec.metainfo import parse_metainfo
+    from torrent_tpu_torch.parallel.bulk import verify_library_sched
+    from torrent_tpu_torch.sched import HashPlaneScheduler, SchedulerConfig
+    from torrent_tpu_torch.session.client import Client, ClientConfig
+    from torrent_tpu_torch.session.torrent import TorrentConfig
+    from torrent_tpu_torch.tools.make_torrent import make_torrent
+    from torrent_tpu_torch.tools.serve import start_service
+    from torrent_tpu_torch.tools.stream import BoxStreamServer
+    from torrent_tpu_torch.utils.metrics import MetricsServer
+
+    rng = np.random.default_rng(93)
+    data = rng.integers(0, 256, 48 * 65536 + 777, dtype=np.uint8).tobytes()
+    src = tmp_path / "seed"
+    src.mkdir()
+    (src / "x.bin").write_bytes(data)
+    meta = parse_metainfo(make_torrent(str(src / "x.bin"), "", piece_length=65536, hasher="gpu"))
+
+    async def go():
+        handle = await start_service(host="127.0.0.1", http_port=0, udp_port=0, dht_port=0,
+                                     shards=8, interval=1, crawl_interval=3600.0)
+        url = f"http://127.0.0.1:{handle.http_port}/announce"
+        torrent_cfg = TorrentConfig(choke_interval=0.15, announce_retry=1.0, dht_interval=0.5)
+        seed = Client(ClientConfig(host="127.0.0.1", hasher="gpu", enable_dht=True,
+                                   dht_bootstrap=(("127.0.0.1", handle.dht.port),), torrent=torrent_cfg))
+        leech = Client(ClientConfig(host="127.0.0.1", hasher="gpu", torrent=torrent_cfg))
+        sched = HashPlaneScheduler(SchedulerConfig(), hasher="gpu")
+        servers = []
+        try:
+            await seed.start()
+            await leech.start()
+            await sched.start()
+            assert (await seed.add(meta, str(src))).bitfield.complete
+            for _ in range(120):
+                if handle.store.metrics_snapshot()["indexed"] >= 1:
+                    break
+                await asyncio.sleep(0.25)
+            assert handle.store.metrics_snapshot()["indexed"] >= 1
+            metrics = await MetricsServer(leech).start()
+            box = await BoxStreamServer(leech).start()
+            servers += [metrics, box]
+            sha1_pieces_cuda.launches = 0
+            t = await leech.add_magnet(Magnet(info_hash=meta.info_hash, trackers=(url,)), str(tmp_path / "leech"))
+            lo = len(data) // 2
+            status, body = await asyncio.to_thread(
+                _get, f"http://127.0.0.1:{box.port}/{meta.info_hash.hex()}/0", {"Range": f"bytes={lo}-"}
+            )
+            assert status == 206 and body == data[lo:]
+            await asyncio.wait_for(t.on_complete.wait(), 120)
+            assert sha1_pieces_cuda.launches > 0
+            sha1_pieces_cuda.launches = 0
+            res = await verify_library_sched([(t.storage, t.metainfo.info)], sched, tenant="recheck")
+            assert bool(res.bitfields[0].all()) and sha1_pieces_cuda.launches > 0
+            _, text = await asyncio.to_thread(_get, f"http://127.0.0.1:{metrics.port}/metrics")
+            assert f"torrent_tpu_torrent_pieces_have{{info_hash=\"{meta.info_hash.hex()}\"".encode() in text
+            _, text = await asyncio.to_thread(_get, f"http://127.0.0.1:{handle.http_port}/metrics")
+            assert b"torrent_tpu_tracker_indexed_total" in text
+            assert handle.store.metrics_snapshot()["announces"] >= 1
+        finally:
+            for s in servers:
+                s.close()
+            await sched.close()
+            await seed.close()
+            await leech.close()
+            await handle.close()
+
+    asyncio.run(asyncio.wait_for(go(), 300))
+
+
+def test_pure_v2_stream_on_card(cuda, tmp_path):
+    """A pure-v2 torrent streamed while it downloads: every byte served
+    passed the SHA-256 row and merkle kernels first."""
+    import asyncio
+
+    from torrent_tpu_torch.codec.metainfo_v2 import encode_metainfo_v2, parse_metainfo_v2
+    from torrent_tpu_torch.server.shard import run_sharded_tracker
+    from torrent_tpu_torch.server.tracker import ServeOptions
+    from torrent_tpu_torch.session.client import Client, ClientConfig
+    from torrent_tpu_torch.session.torrent import TorrentConfig
+    from torrent_tpu_torch.tools.stream import StreamServer, content_files
+
+    rng = np.random.default_rng(94)
+    files = {
+        "multi/a.bin": rng.integers(0, 256, 9 * 65536 + 5, dtype=np.uint8).tobytes(),
+        "multi/b/c.bin": rng.integers(0, 256, 4 * 65536, dtype=np.uint8).tobytes(),
+    }
+    for rel, blob in files.items():
+        (tmp_path / rel).parent.mkdir(parents=True, exist_ok=True)
+        (tmp_path / rel).write_bytes(blob)
+    built = build_v2(
+        [(tuple(rel.split("/")[1:]), str(tmp_path / rel)) for rel in files], "multi", 65536, hasher="gpu"
+    )
+
+    async def go():
+        server, pump = await run_sharded_tracker(
+            ServeOptions(http_port=0, udp_port=None, host="127.0.0.1", interval=1)
+        )
+        meta = parse_metainfo_v2(encode_metainfo_v2(
+            built.info, built.piece_layers, f"http://127.0.0.1:{server.http_port}/announce"))
+        cfg = TorrentConfig(choke_interval=0.15, announce_retry=1.0)
+        clients = [Client(ClientConfig(host="127.0.0.1", hasher="gpu", torrent=cfg)) for _ in range(2)]
+        stream = None
+        try:
+            for c in clients:
+                await c.start()
+            assert (await clients[0].add(meta, str(tmp_path))).bitfield.complete
+            sha256_pieces_cuda.launches = sha256_merkle_cuda.launches = 0
+            t = await clients[1].add(meta, str(tmp_path / "leech"))
+            stream = await StreamServer(t).start()
+            for i, _, _, _ in content_files(t):
+                rel = "multi/" + "/".join(t.info.files[i].path)
+                status, body = await asyncio.to_thread(_get, f"http://127.0.0.1:{stream.port}/{i}")
+                assert status == 200 and body == files[rel], rel
+            await asyncio.wait_for(t.on_complete.wait(), 120)
+            return sha256_pieces_cuda.launches, sha256_merkle_cuda.launches
+        finally:
+            if stream is not None:
+                stream.close()
+            for c in clients:
+                await c.close()
+            server.close()
+            await asyncio.wait_for(pump, 5)
+
+    rows, merkle = asyncio.run(asyncio.wait_for(go(), 300))
+    assert rows > 0 and merkle > 0, (rows, merkle)

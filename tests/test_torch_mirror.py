@@ -76,6 +76,20 @@ MIRRORED = (
     "net/natpmp.py",
     "net/upnp.py",
     "net/dnsprefs.py",
+    "server/shard.py",
+    "net/indexer.py",
+    "utils/metrics.py",
+    "scenario/spec.py",
+    "scenario/verdict.py",
+    "scenario/actors.py",
+    "scenario/engine.py",
+    "scenario/library/__init__.py",
+    "scenario/__init__.py",
+    "server/__init__.py",
+    "tools/serve.py",
+    "tools/stream.py",
+    "tools/feed.py",
+    "tools/netbench.py",
 )
 DIVERGENCES = {
     # the lockset sanitizer (analysis/sanitizer.py) is not ported: what
@@ -106,6 +120,18 @@ DIVERGENCES = {
         "Client.start": 'hasher "gpu" resolves the device before listening: no card, no socket',
         "Client._verifier_for": "a shared GPUVerifier on config.device",
         "Client.add": "the derived TorrentConfig carries device",
+    },
+    "utils/metrics.py": {
+        "MetricsServer._handle": "no sanitizer block on /metrics until the sanitizer is ported",
+    },
+    # the clients' hasher is the card's by default, so the bench takes
+    # the hasher and the device; its harness is the port's own test file
+    "tools/netbench.py": {
+        "_swarm": (
+            'hasher and device parameters reach every ClientConfig; the '
+            "harness comes from tests/test_torch_session.py"
+        ),
+        "main": "--hasher gpu|cpu (default gpu) and --device",
     },
 }
 

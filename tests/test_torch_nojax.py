@@ -112,6 +112,18 @@ def test_package_has_the_slice():
         "torrent_tpu_torch.net.natpmp",
         "torrent_tpu_torch.net.upnp",
         "torrent_tpu_torch.net.dnsprefs",
+        "torrent_tpu_torch.server.shard",
+        "torrent_tpu_torch.net.indexer",
+        "torrent_tpu_torch.scenario",
+        "torrent_tpu_torch.scenario.spec",
+        "torrent_tpu_torch.scenario.verdict",
+        "torrent_tpu_torch.scenario.actors",
+        "torrent_tpu_torch.scenario.engine",
+        "torrent_tpu_torch.scenario.library",
+        "torrent_tpu_torch.tools.serve",
+        "torrent_tpu_torch.tools.stream",
+        "torrent_tpu_torch.tools.feed",
+        "torrent_tpu_torch.tools.netbench",
     ):
         assert name in MODULES
     assert (PACKAGE / "csrc" / "sha1.cu").is_file()

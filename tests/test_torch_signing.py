@@ -216,3 +216,111 @@ class TestSessionGate:
                 await c.close()
 
         asyncio.run(asyncio.wait_for(go(), 60))
+
+
+class TestSecurePublishingPipeline:
+    def test_feed_to_gated_update_end_to_end(self, tmp_path):
+        """The whole signed-publishing story composes: a publisher's
+        signed torrent enters via a GATED feed, its signed BEP 39
+        successor passes the update gate and switches in place; an
+        attacker's re-signed successor at the same update-url is
+        refused. One trusted key end to end."""
+        import asyncio
+
+        from tests.test_torch_feed import _serve_routes
+        from torrent_tpu_torch.codec.bencode import bdecode, bencode
+        from torrent_tpu_torch.session.client import Client, ClientConfig
+        from torrent_tpu_torch.tools.feed import FeedPoller
+        from torrent_tpu_torch.tools.make_torrent import make_torrent
+
+        async def go():
+            pub_key = ed25519.publickey(SEED_A)
+            gate = ("publisher", pub_key)
+            rng = np.random.default_rng(61)
+            keep = rng.integers(0, 256, 32 * 1024, dtype=np.uint8).tobytes()
+            old = rng.integers(0, 256, 16 * 1024, dtype=np.uint8).tobytes()
+            new = rng.integers(0, 256, 16 * 1024, dtype=np.uint8).tobytes()
+
+            # publisher's v1 dataset (seeded locally so the feed's add
+            # completes its recheck from disk)
+            src = tmp_path / "dl" / "ds"
+            src.mkdir(parents=True)
+            (src / "keep.bin").write_bytes(keep)
+            (src / "change.bin").write_bytes(old)
+            base_holder = [""]
+            v1_plain = make_torrent(
+                str(src), ANNOUNCE, piece_length=16384, hasher="gpu", device="cpu"
+            )
+
+            # v2 successor: one file changed, same names
+            src2 = tmp_path / "v2src" / "ds"
+            src2.mkdir(parents=True)
+            (src2 / "keep.bin").write_bytes(keep)
+            (src2 / "change.bin").write_bytes(new)
+            v2_plain = make_torrent(
+                str(src2), ANNOUNCE, piece_length=16384, hasher="gpu", device="cpu"
+            )
+            v2_signed = signing.sign_torrent(v2_plain, SEED_A, "publisher")
+            # attacker: different payload, validly self-signed wrong key
+            evil = signing.sign_torrent(v2_plain, SEED_B, "publisher")
+
+            serving = {"successor": evil}
+            base, shutdown = _serve_routes(
+                {
+                    "/feed.xml": lambda: (
+                        '<rss version="2.0"><channel><item><title>ds</title>'
+                        f'<enclosure url="{base_holder[0]}/ds.torrent"/>'
+                        "</item></channel></rss>"
+                    ).encode(),
+                    "/ds.torrent": lambda: v1_final[0],
+                    "/next.torrent": lambda: serving["successor"],
+                }
+            )
+            base_holder[0] = base
+            # v1 carries the update-url, then is signed (root keys only)
+            top = bdecode(v1_plain)
+            top[b"update-url"] = f"{base}/next.torrent".encode()
+            v1_final = [
+                signing.sign_torrent(bencode(top), SEED_A, "publisher")
+            ]
+
+            c = Client(ClientConfig(host="127.0.0.1", enable_upnp=False, hasher="cpu"))
+            await c.start()
+            try:
+                poller = FeedPoller(
+                    c, f"{base}/feed.xml", str(tmp_path / "dl"),
+                    require_signed=gate,
+                )
+                added = await poller.poll_once()
+                assert len(added) == 1
+                t1 = added[0]
+                assert t1.bitfield.complete  # payload was on disk
+
+                # attacker's successor: gate refuses at the raw bytes
+                from torrent_tpu_torch.session.client import fetch_update
+
+                raw_out: list = []
+                succ = await fetch_update(
+                    t1.metainfo, raw_bytes_out=raw_out
+                )
+                assert succ is not None
+                with pytest.raises(ValueError, match="BEP 35"):
+                    signing.ensure_signed(raw_out[0], *gate)
+
+                # publisher's real successor: passes, switches in place
+                serving["successor"] = v2_signed
+                raw_out.clear()
+                succ = await fetch_update(t1.metainfo, raw_bytes_out=raw_out)
+                assert succ is not None
+                signing.ensure_signed(raw_out[0], *gate)  # no raise
+                t2 = await c.apply_update(t1, succ)
+                assert t2.metainfo.info_hash in c.torrents
+                # unchanged file adopted from the predecessor in place
+                assert any(
+                    t2.bitfield.has(i) for i in range(t2.info.num_pieces)
+                )
+            finally:
+                await c.close()
+                shutdown()
+
+        asyncio.run(asyncio.wait_for(go(), 90))

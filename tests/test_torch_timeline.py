@@ -5,7 +5,8 @@ reference.
 
 The reference's tests/test_timeline.py (ring, sampler, replay, SLO
 evaluation, engine, armed slot, health, the bridge's timeline/SLO/health
-routes and the fault-burst acceptance scenario), the device-free
+routes, the fault-burst acceptance scenario, the sharded tracker's and
+the serve recipe's health, the fleet budget rollup), the device-free
 registry classes of tests/test_swarm_obs.py, and the timeline, SLO,
 swarm and serve renderer cases of tests/test_metrics.py, ported. The
 bridge cases run ``hasher="cpu"`` (hashlib), as the reference's do: the
@@ -673,6 +674,115 @@ class TestBridgeRoutes:
         run(go())
 
 
+# ------------------------------------------------------- tracker + serve
+
+
+class TestTrackerHealth:
+    def test_sharded_tracker_serves_health(self):
+        from torrent_tpu_torch.server.shard import run_sharded_tracker
+        from torrent_tpu_torch.server.tracker import ServeOptions
+
+        async def go():
+            server, task = await run_sharded_tracker(
+                ServeOptions(http_port=0, udp_port=None, host="127.0.0.1"),
+                n_shards=2,
+            )
+            try:
+                await asyncio.sleep(0.05)  # let the pump stamp a tick
+                status, body = await _http(
+                    server.http_port, "GET", "/v1/health"
+                )
+                health = json.loads(body)
+                assert status == 200 and health["ready"]
+                assert health["live"]
+            finally:
+                server.close()
+                task.cancel()
+                try:
+                    await task
+                except (asyncio.CancelledError, Exception):
+                    pass
+
+        run(go())
+
+    def test_serve_recipe_wires_everything(self):
+        """The deployment recipe: one call starts the sharded tracker +
+        DHT indexer + health + metrics (+ timeline/SLO when armed);
+        /v1/health answers ready, /metrics carries tracker AND slo
+        series, and an announce round-trips through the plane."""
+        import hashlib as _hashlib
+
+        from torrent_tpu_torch.tools.serve import start_service
+
+        async def go():
+            handle = await start_service(
+                http_port=0, udp_port=None, host="127.0.0.1",
+                shards=2, dht_port=0, crawl_interval=3600.0,
+                slo=True, timeline_interval_s=3600.0,
+            )
+            try:
+                assert handle.dht is not None and handle.indexer is not None
+                assert handle.slo_engine is not None
+                ih = _hashlib.sha1(b"serve-swarm").digest()
+                handle.store.announce(ih, b"p" * 20, "10.0.0.1", 6881, left=0)
+                handle.sampler.sample_once()
+                await asyncio.sleep(0.05)
+                status, body = await _http(handle.http_port, "GET", "/v1/health")
+                health = json.loads(body)
+                assert status == 200 and health["ready"], health
+                status, body = await _http(handle.http_port, "GET", "/metrics")
+                text = body.decode()
+                assert "torrent_tpu_tracker_peers 1" in text
+                assert "torrent_tpu_slo_budget_remaining" in text
+                assert "torrent_tpu_timeline_samples_total 1" in text
+                # the sample carried tracker facts
+                assert handle.timeline.samples()[-1]["tracker"]["peers"] == 1
+            finally:
+                await handle.close()
+            from torrent_tpu_torch.obs import slo as _slo
+
+            assert _slo.armed() is None
+
+        run(go())
+
+
+class TestFleetBudgetHealth:
+    """The reference's class without its ``top --fleet`` rendering case,
+    which waits for ``tools/top.py``."""
+
+    def test_digest_carries_slo_and_rollup_surfaces_worst(self):
+        from torrent_tpu_torch.obs import slo as _slo
+        from torrent_tpu_torch.obs.fleet import aggregate_fleet, obs_digest
+
+        eng = SloEngine("availability=0.99", short_samples=4, long_samples=16)
+        eng.observe({"samples": [mk_sample(1, pieces=10),
+                                 mk_sample(2, pieces=10, failed=10)]})
+        _slo.arm(eng)
+        try:
+            digest = obs_digest()
+            assert digest["slo"]["breach"] == 1
+            assert digest["slo"]["burn"] > 0
+        finally:
+            _slo.disarm()
+        # an unarmed digest carries no slo key (byte-identical to before)
+        assert "slo" not in obs_digest()
+        roll = aggregate_fleet({
+            0: {"wall_s": 1.0, "stages": {}, "unit": {},
+                "slo": {"burn": 2.0, "objective": "availability", "breach": 0}},
+            1: {"wall_s": 1.0, "stages": {}, "unit": {},
+                "slo": {"burn": 30.0, "objective": "integrity", "breach": 1}},
+        })
+        assert roll["slo"]["pid"] == 1
+        assert roll["slo"]["worst_burn"] == 30.0
+        assert roll["slo"]["breaching"] == 1
+
+    def test_rollup_without_slo_has_none(self):
+        from torrent_tpu_torch.obs.fleet import aggregate_fleet
+
+        roll = aggregate_fleet({0: {"wall_s": 1.0, "stages": {}, "unit": {}}})
+        assert roll["slo"] is None
+
+
 # ----------------------------------------------------- acceptance scenario
 
 
@@ -1203,10 +1313,10 @@ class TestRenderers:
 
     def test_full_exposition_concatenation_lints(self):
         """What the bridge actually serves: sched + fabric + fleet +
-        control + timeline + SLO + obs (incl. the pipeline ledger) in
-        one payload must still have unique series and complete headers.
-        The reference's case also renders its tracker and sanitizer
-        families, which come with the session and the analysis plane."""
+        control + tracker + timeline + SLO + obs (incl. the pipeline
+        ledger) in one payload must still have unique series and
+        complete headers. The reference's case also renders its
+        sanitizer families, which come with the analysis plane."""
         from torrent_tpu_torch.obs import render_obs_metrics
         from torrent_tpu_torch.obs.fleet import local_fleet_snapshot
         from torrent_tpu_torch.obs.ledger import pipeline_ledger
@@ -1225,7 +1335,9 @@ class TestRenderers:
             render_sched_metrics,
             render_slo_metrics,
             render_timeline_metrics,
+            render_tracker_metrics,
         )
+        from torrent_tpu_torch.server.shard import ShardedSwarmStore
 
         from torrent_tpu_torch.serve_plane.telemetry import serve_telemetry
 
@@ -1237,6 +1349,8 @@ class TestRenderers:
         )
         sched = HashPlaneScheduler(SchedulerConfig(), hasher="cpu")
         pilot = SchedulerAutopilot(sched, ControlConfig())
+        store = ShardedSwarmStore(n_shards=2)
+        store.announce(b"\x01" * 20, b"\x02" * 20, "1.1.1.1", 7001, left=0)
         timeline = Timeline(depth=4)
         engine = SloEngine("availability=0.999;integrity=on")
         sampler = TimelineSampler(timeline, scheduler=sched,
@@ -1249,6 +1363,7 @@ class TestRenderers:
             + render_fabric_metrics({"pid": 0})
             + render_fleet_metrics(local_fleet_snapshot(sched))
             + render_control_metrics(pilot.metrics_snapshot())
+            + render_tracker_metrics(store.metrics_snapshot())
             + render_timeline_metrics(tl_snap)
             + render_slo_metrics(engine.report())
             + render_obs_metrics()
@@ -1257,6 +1372,7 @@ class TestRenderers:
         assert "torrent_tpu_pipeline_stage_busy_seconds_total" in text
         assert "torrent_tpu_fleet_reporting 1" in text
         assert "torrent_tpu_control_enabled 1" in text
+        assert "torrent_tpu_tracker_announces_total 1" in text
         # the swarm wire-plane families ride render_obs_metrics, so the
         # full bridge/MetricsServer payload carries both new families
         assert "torrent_tpu_swarm_peers " in text

@@ -289,6 +289,71 @@ class TestV2SwarmE2E:
 
         run(go(), timeout=120)
 
+    def test_streaming_a_pure_v2_torrent(self, tmp_path):
+        """tools/stream.py composes with the v2 session: Range requests
+        against a file of a downloading pure-v2 torrent serve verified
+        bytes; the aligned piece space maps file offsets directly. The
+        leech verifies with the "gpu" hasher on ``device="cpu"`` (the
+        plain SHA-256 rows and merkle fold)."""
+        import urllib.request
+
+        from torrent_tpu_torch.server.in_memory import run_tracker
+        from torrent_tpu_torch.server.tracker import ServeOptions
+        from torrent_tpu_torch.session.client import Client, ClientConfig
+        from torrent_tpu_torch.tools.stream import StreamServer
+
+        async def go():
+            server, _ = await run_tracker(
+                ServeOptions(http_port=0, udp_port=None, interval=1)
+            )
+            ann = f"http://127.0.0.1:{server.http_port}/announce"
+            meta, files = _build(announce=ann)
+            sd = _seed_dir(tmp_path, "ss", files)
+            ld = str(tmp_path / "sl")
+            os.makedirs(ld)
+            c1 = Client(ClientConfig(port=0, enable_upnp=False, hasher="cpu"))
+            c2 = Client(ClientConfig(port=0, enable_upnp=False, hasher="gpu", device="cpu"))
+            await c1.start()
+            await c2.start()
+            stream = None
+            try:
+                t1 = await c1.add(meta, sd)
+                assert t1.bitfield.complete
+                t2 = await c2.add(meta, ld)
+                stream = await StreamServer(t2).start()
+                fa, fb, fc = files
+                # c.bin's index in the (tree-sorted) v2 file table
+                idx = next(
+                    i
+                    for i, (_, length) in enumerate(t2.file_ranges())
+                    if length == len(fc)
+                )
+                lo = len(fc) - 5000
+
+                def fetch():
+                    req = urllib.request.Request(
+                        f"http://127.0.0.1:{stream.port}/{idx}",
+                        headers={"Range": f"bytes={lo}-"},
+                    )
+                    with urllib.request.urlopen(req, timeout=60) as r:
+                        return r.status, r.read()
+
+                status, body = await asyncio.to_thread(fetch)
+                assert status == 206 and body == fc[lo:]
+                for _ in range(600):
+                    if t2.bitfield.complete:
+                        break
+                    await asyncio.sleep(0.05)
+                assert t2.bitfield.complete
+            finally:
+                if stream is not None:
+                    stream.close()
+                await c1.close()
+                await c2.close()
+                server.close()
+
+        run(go(), timeout=90)
+
     def test_btmh_magnet_bootstrap(self, tmp_path):
         """v2-only magnet: ut_metadata (sha-256 validated) + piece layers
         over BEP 52 hash transfer on the same connection, then the full

@@ -16,7 +16,13 @@ BitTorrent session around it:
 - ``codec.magnet``, ``session.metadata``, ``net.dht`` (BEP 5/44/46
   with ``codec.signing`` and ``utils.ed25519``), ``net.utp`` and the
   network helpers (``net.lsd``, ``natpmp``, ``upnp``, ``socks``,
-  ``ipfilter``, ``dnsprefs``): joining a swarm from a magnet.
+  ``ipfilter``, ``dnsprefs``): joining a swarm from a magnet;
+- ``server.shard`` and ``net.indexer`` (the sharded tracker the DHT
+  indexer feeds), ``tools.serve`` (its deployment), ``tools.stream``
+  (HTTP streaming of verified bytes while a torrent downloads),
+  ``tools.feed``, ``tools.netbench``, ``utils.metrics.MetricsServer``
+  and ``scenario`` (the deterministic chaos plane): the tracker
+  deployment and the serving tools.
 
 Entry points take ``device=None``, which means the GPU; without one
 they raise. Pass ``device="cpu"`` for the plain PyTorch path. The

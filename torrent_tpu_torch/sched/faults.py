@@ -33,9 +33,9 @@ the existing ``SchedulerConfig.plane_factory`` seam::
     cfg = SchedulerConfig(plane_factory=plan.plane_factory(hasher="cpu"))
 
 In the reference, ``bridge --fault-plan SPEC`` and ``doctor --faults``
-wire the same specs up for manual chaos runs; those tools come with the
-port's serving slice, and ``chip_smoke.py`` drives a poisoned-prefix
-plan through the CUDA planes.
+wire the same specs up for manual chaos runs; the port's bridge takes
+``--fault-plan``, ``doctor`` comes with the tools, and ``chip_smoke.py``
+drives a poisoned-prefix plan through the CUDA planes.
 """
 
 from __future__ import annotations

@@ -1,7 +1,6 @@
-"""The tracker server: HTTP and UDP announce/scrape (``tracker``) and the
-in-memory swarm store behind ``run_tracker`` (``in_memory``). The
-sharded store (``server/shard.py`` in the JAX package) is not ported
-yet."""
+"""The tracker server: HTTP and UDP announce/scrape (``tracker``), the
+in-memory swarm store behind ``run_tracker`` (``in_memory``), and the
+sharded announce plane behind ``run_sharded_tracker`` (``shard``)."""
 
 from torrent_tpu_torch.server.tracker import (
     AnnounceRequest,
@@ -15,8 +14,15 @@ from torrent_tpu_torch.server.tracker import (
     serve_tracker,
 )
 from torrent_tpu_torch.server.in_memory import InMemoryTracker, run_tracker
+from torrent_tpu_torch.server.shard import (
+    AnnounceOutcome,
+    ShardedSwarmStore,
+    ShardedTracker,
+    run_sharded_tracker,
+)
 
 __all__ = [
+    "AnnounceOutcome",
     "AnnounceRequest",
     "ScrapeRequest",
     "HttpAnnounceRequest",
@@ -24,8 +30,11 @@ __all__ = [
     "UdpAnnounceRequest",
     "UdpScrapeRequest",
     "ServeOptions",
+    "ShardedSwarmStore",
+    "ShardedTracker",
     "TrackerServer",
     "serve_tracker",
+    "run_sharded_tracker",
     "InMemoryTracker",
     "run_tracker",
 ]

@@ -1,19 +1,24 @@
-"""Prometheus renderers for the scheduler and fabric slices.
+"""Prometheus renderers, and the metrics endpoint of a running Client.
 
-The counterpart of the reference's ``utils/metrics.py``, carrying the
-renderers of the snapshots the port produces so far:
-``render_sched_metrics`` (a ``HashPlaneScheduler``'s
-``metrics_snapshot()``), ``render_control_metrics`` (the autopilot's),
-``render_fabric_metrics`` (a ``FabricExecutor``'s),
-``render_fleet_metrics`` (a fleet rollup), and the bridge's
-``render_timeline_metrics``, ``render_slo_metrics``,
-``render_swarm_metrics`` and ``render_serve_metrics``. Each is a copy
-of the reference's function of the same name. The sanitizer's
-``render_tsan_metrics`` comes with the analysis plane, and the session's
-``render_tracker_metrics`` and ``render_metrics`` with the session.
+A copy of the reference's ``utils/metrics.py``. ``GET /metrics`` on a
+``MetricsServer`` renders the session counters (``Client.status()`` and
+per-torrent ``status()``) in the Prometheus text exposition format, with
+the scheduler, fabric, control, obs and SLO series when given or armed;
+``GET /v1/swarm`` serves the swarm wire plane's snapshot. The other
+renderers serve the bridge (``render_sched_metrics``,
+``render_timeline_metrics``, ...) and the sharded tracker
+(``render_tracker_metrics``). The sanitizer is not ported, so no
+endpoint appends ``render_tsan_metrics`` yet; it is kept for the
+analysis plane.
 """
 
 from __future__ import annotations
+
+import asyncio
+
+from torrent_tpu_torch.utils.log import get_logger
+
+log = get_logger("utils.metrics")
 
 
 def _esc(value: str) -> str:
@@ -151,68 +156,80 @@ def render_sched_metrics(sched) -> str:
     return "\n".join(lines) + "\n"
 
 
-def render_control_metrics(snapshot: dict) -> str:
-    """Prometheus rendering of the scheduler autopilot's counters.
+def render_tsan_metrics(snapshot: dict) -> str:
+    """Prometheus rendering of the concurrency sanitizer's counters.
 
-    ``snapshot`` is ``torrent_tpu_torch.sched.control.SchedulerAutopilot.
-    metrics_snapshot()``. Appended to both ``/metrics`` endpoints while
-    an autopilot is attached — the series simply don't exist otherwise.
-    Defensive against partial snapshots: missing keys render as 0."""
-    s = snapshot or {}
+    ``snapshot`` is the sanitizer's ``snapshot()`` (the reference's
+    ``analysis/sanitizer.py``; not ported yet, so no endpoint of the
+    port appends these series)."""
+    s = snapshot
     lines = [
-        "# HELP torrent_tpu_control_enabled Scheduler autopilot actuation switch (0 = observe-only)",
-        "# TYPE torrent_tpu_control_enabled gauge",
-        f"torrent_tpu_control_enabled {1 if s.get('enabled') else 0}",
-        "# HELP torrent_tpu_control_ticks_total Controller decisions computed",
-        "# TYPE torrent_tpu_control_ticks_total counter",
-        f"torrent_tpu_control_ticks_total {s.get('ticks', 0)}",
-        "# HELP torrent_tpu_control_admission_factor Fraction of the configured admission budget currently admitted",
-        "# TYPE torrent_tpu_control_admission_factor gauge",
-        f"torrent_tpu_control_admission_factor {s.get('admission_factor', 1.0):.4f}",
-        "# HELP torrent_tpu_control_backend_switches_total Lane backend steers applied by the controller",
-        "# TYPE torrent_tpu_control_backend_switches_total counter",
-        f"torrent_tpu_control_backend_switches_total {s.get('backend_switches', 0)}",
-        "# HELP torrent_tpu_control_actions_total Actuator moves applied, by actuator",
-        "# TYPE torrent_tpu_control_actions_total counter",
+        "# HELP torrent_tpu_lock_wait_seconds_total Seconds threads spent waiting to acquire this lock",
+        "# TYPE torrent_tpu_lock_wait_seconds_total counter",
     ]
-    for actuator in ("batch_target", "flush_deadline", "admission", "backend"):
+    locks = s.get("locks", {})
+    for name, st in sorted(locks.items()):
         lines.append(
-            f'torrent_tpu_control_actions_total{{actuator="{actuator}"}} '
-            f"{(s.get('actions') or {}).get(actuator, 0)}"
-        )
-    # the controller's last confirmed bottleneck as a 0/1 enum family
-    from torrent_tpu_torch.obs.ledger import PIPELINE_STAGES
-
-    bn = s.get("bottleneck")
-    lines.append(
-        "# HELP torrent_tpu_control_bottleneck Stage the controller's last decision named limiting (1 = current)"
-    )
-    lines.append("# TYPE torrent_tpu_control_bottleneck gauge")
-    for stage in PIPELINE_STAGES:
-        lines.append(
-            f'torrent_tpu_control_bottleneck{{stage="{stage}"}} '
-            f"{1 if stage == bn else 0}"
-        )
-    lanes = s.get("lanes") or {}
-    lines.append(
-        "# HELP torrent_tpu_control_lane_target Current (possibly adapted) pieces-per-launch target per lane"
-    )
-    lines.append("# TYPE torrent_tpu_control_lane_target gauge")
-    for lane, st in sorted(lanes.items()):
-        lines.append(
-            f'torrent_tpu_control_lane_target{{lane="{_esc(lane)}",'
-            f'backend="{_esc(str(st.get("backend", "device")))}"}} '
-            f"{st.get('target', 0)}"
+            f'torrent_tpu_lock_wait_seconds_total{{lock="{_esc(name)}"}} '
+            f"{st['wait_total_s']:.6f}"
         )
     lines.append(
-        "# HELP torrent_tpu_control_lane_flush_deadline_seconds Current (possibly adapted) flush deadline per lane"
+        "# HELP torrent_tpu_lock_hold_max_seconds Longest single hold observed for this lock"
     )
-    lines.append("# TYPE torrent_tpu_control_lane_flush_deadline_seconds gauge")
-    for lane, st in sorted(lanes.items()):
+    lines.append("# TYPE torrent_tpu_lock_hold_max_seconds gauge")
+    for name, st in sorted(locks.items()):
         lines.append(
-            f'torrent_tpu_control_lane_flush_deadline_seconds{{lane="{_esc(lane)}"}} '
-            f"{st.get('deadline', 0.0):.6f}"
+            f'torrent_tpu_lock_hold_max_seconds{{lock="{_esc(name)}"}} '
+            f"{st['hold_max_s']:.6f}"
         )
+    lines.append(
+        "# HELP torrent_tpu_lock_acquisitions_total Acquisitions of this lock"
+    )
+    lines.append("# TYPE torrent_tpu_lock_acquisitions_total counter")
+    for name, st in sorted(locks.items()):
+        lines.append(
+            f'torrent_tpu_lock_acquisitions_total{{lock="{_esc(name)}"}} '
+            f"{st['acquisitions']}"
+        )
+    lines.append(
+        "# HELP torrent_tpu_lock_contended_total Acquisitions that waited more than 1ms"
+    )
+    lines.append("# TYPE torrent_tpu_lock_contended_total counter")
+    for name, st in sorted(locks.items()):
+        lines.append(
+            f'torrent_tpu_lock_contended_total{{lock="{_esc(name)}"}} '
+            f"{st['contended']}"
+        )
+    lines += [
+        "# HELP torrent_tpu_lock_order_cycles_total Lock-order cycles observed at runtime (any nonzero value is a bug)",
+        "# TYPE torrent_tpu_lock_order_cycles_total counter",
+        f"torrent_tpu_lock_order_cycles_total {len(s.get('cycles', []))}",
+        "# HELP torrent_tpu_lock_long_holds_total Locks flagged by the hold-time watchdog",
+        "# TYPE torrent_tpu_lock_long_holds_total counter",
+        f"torrent_tpu_lock_long_holds_total {s.get('long_holds', 0)}",
+        "# HELP torrent_tpu_loop_stalls_total Event-loop callbacks that exceeded the stall threshold",
+        "# TYPE torrent_tpu_loop_stalls_total counter",
+        f"torrent_tpu_loop_stalls_total {s.get('loop_stalls', 0)}",
+        "# HELP torrent_tpu_loop_stall_max_seconds Longest single event-loop callback observed",
+        "# TYPE torrent_tpu_loop_stall_max_seconds gauge",
+        f"torrent_tpu_loop_stall_max_seconds {s.get('loop_stall_max_s', 0.0):.6f}",
+    ]
+    # dynamic lockset checking (Eraser): registered cells + races
+    cells = s.get("cells", {})
+    lines.append(
+        "# HELP torrent_tpu_guarded_cells Cell instances registered with the dynamic lockset checker"
+    )
+    lines.append("# TYPE torrent_tpu_guarded_cells gauge")
+    for name, st in sorted(cells.items()):
+        lines.append(
+            f'torrent_tpu_guarded_cells{{cell="{_esc(name)}"}} '
+            f"{st.get('instances', 0)}"
+        )
+    lines += [
+        "# HELP torrent_tpu_lockset_races_total Shared-state lockset races observed at runtime (any nonzero value is a bug)",
+        "# TYPE torrent_tpu_lockset_races_total counter",
+        f"torrent_tpu_lockset_races_total {s.get('lockset_race_count', 0)}",
+    ]
     return "\n".join(lines) + "\n"
 
 
@@ -280,6 +297,71 @@ def render_fabric_metrics(snapshot: dict) -> str:
         "# TYPE torrent_tpu_fabric_degraded gauge",
         f"torrent_tpu_fabric_degraded{{{pid}}} {1 if s.get('degraded') else 0}",
     ]
+    return "\n".join(lines) + "\n"
+
+
+def render_control_metrics(snapshot: dict) -> str:
+    """Prometheus rendering of the scheduler autopilot's counters.
+
+    ``snapshot`` is ``torrent_tpu_torch.sched.control.SchedulerAutopilot.
+    metrics_snapshot()``. Appended to both ``/metrics`` endpoints while
+    an autopilot is attached — the series simply don't exist otherwise.
+    Defensive against partial snapshots: missing keys render as 0."""
+    s = snapshot or {}
+    lines = [
+        "# HELP torrent_tpu_control_enabled Scheduler autopilot actuation switch (0 = observe-only)",
+        "# TYPE torrent_tpu_control_enabled gauge",
+        f"torrent_tpu_control_enabled {1 if s.get('enabled') else 0}",
+        "# HELP torrent_tpu_control_ticks_total Controller decisions computed",
+        "# TYPE torrent_tpu_control_ticks_total counter",
+        f"torrent_tpu_control_ticks_total {s.get('ticks', 0)}",
+        "# HELP torrent_tpu_control_admission_factor Fraction of the configured admission budget currently admitted",
+        "# TYPE torrent_tpu_control_admission_factor gauge",
+        f"torrent_tpu_control_admission_factor {s.get('admission_factor', 1.0):.4f}",
+        "# HELP torrent_tpu_control_backend_switches_total Lane backend steers applied by the controller",
+        "# TYPE torrent_tpu_control_backend_switches_total counter",
+        f"torrent_tpu_control_backend_switches_total {s.get('backend_switches', 0)}",
+        "# HELP torrent_tpu_control_actions_total Actuator moves applied, by actuator",
+        "# TYPE torrent_tpu_control_actions_total counter",
+    ]
+    for actuator in ("batch_target", "flush_deadline", "admission", "backend"):
+        lines.append(
+            f'torrent_tpu_control_actions_total{{actuator="{actuator}"}} '
+            f"{(s.get('actions') or {}).get(actuator, 0)}"
+        )
+    # the controller's last confirmed bottleneck as a 0/1 enum family
+    from torrent_tpu_torch.obs.ledger import PIPELINE_STAGES
+
+    bn = s.get("bottleneck")
+    lines.append(
+        "# HELP torrent_tpu_control_bottleneck Stage the controller's last decision named limiting (1 = current)"
+    )
+    lines.append("# TYPE torrent_tpu_control_bottleneck gauge")
+    for stage in PIPELINE_STAGES:
+        lines.append(
+            f'torrent_tpu_control_bottleneck{{stage="{stage}"}} '
+            f"{1 if stage == bn else 0}"
+        )
+    lanes = s.get("lanes") or {}
+    lines.append(
+        "# HELP torrent_tpu_control_lane_target Current (possibly adapted) pieces-per-launch target per lane"
+    )
+    lines.append("# TYPE torrent_tpu_control_lane_target gauge")
+    for lane, st in sorted(lanes.items()):
+        lines.append(
+            f'torrent_tpu_control_lane_target{{lane="{_esc(lane)}",'
+            f'backend="{_esc(str(st.get("backend", "device")))}"}} '
+            f"{st.get('target', 0)}"
+        )
+    lines.append(
+        "# HELP torrent_tpu_control_lane_flush_deadline_seconds Current (possibly adapted) flush deadline per lane"
+    )
+    lines.append("# TYPE torrent_tpu_control_lane_flush_deadline_seconds gauge")
+    for lane, st in sorted(lanes.items()):
+        lines.append(
+            f'torrent_tpu_control_lane_flush_deadline_seconds{{lane="{_esc(lane)}"}} '
+            f"{st.get('deadline', 0.0):.6f}"
+        )
     return "\n".join(lines) + "\n"
 
 
@@ -494,6 +576,112 @@ def render_slo_metrics(report: dict | None) -> str:
 
 
 # per-shard series are bounded: the shard count is operator config, but
+# a misconfigured 4096-shard store must still render a bounded scrape —
+# shards past the cap fold into one shard="overflow" aggregate
+MAX_TRACKER_SHARDS = 32
+
+
+def render_tracker_metrics(snapshot: dict) -> str:
+    """Prometheus rendering of the sharded announce plane
+    (``server.shard.ShardedSwarmStore.metrics_snapshot()``, optionally
+    carrying an ``indexer`` sub-dict from ``net.indexer.DhtIndexer``).
+
+    Served by the tracker's own ``/metrics`` route; the announce-latency
+    log2 histograms (family ``torrent_tpu_tracker_announce_seconds``)
+    ride the shared obs registry and render alongside. Defensive against
+    partial snapshots — a missing key renders as 0, never a crash
+    mid-scrape."""
+    s = snapshot or {}
+    batch = s.get("batch") or {}
+    shards = [sh for sh in s.get("shards") or [] if isinstance(sh, dict)]
+    named = shards[:MAX_TRACKER_SHARDS]
+    folded = shards[MAX_TRACKER_SHARDS:]
+    lines = [
+        "# HELP torrent_tpu_tracker_shards Configured announce-store shards",
+        "# TYPE torrent_tpu_tracker_shards gauge",
+        f"torrent_tpu_tracker_shards {s.get('n_shards', len(shards))}",
+        "# HELP torrent_tpu_tracker_announces_total Announce requests processed",
+        "# TYPE torrent_tpu_tracker_announces_total counter",
+        f"torrent_tpu_tracker_announces_total {s.get('announces', 0)}",
+        "# HELP torrent_tpu_tracker_scrapes_total Scrape requests processed",
+        "# TYPE torrent_tpu_tracker_scrapes_total counter",
+        f"torrent_tpu_tracker_scrapes_total {s.get('scrapes', 0)}",
+        "# HELP torrent_tpu_tracker_swarms Swarms currently tracked",
+        "# TYPE torrent_tpu_tracker_swarms gauge",
+        f"torrent_tpu_tracker_swarms {s.get('swarms', 0)}",
+        "# HELP torrent_tpu_tracker_peers Peers currently tracked across all swarms",
+        "# TYPE torrent_tpu_tracker_peers gauge",
+        f"torrent_tpu_tracker_peers {s.get('peers', 0)}",
+        "# HELP torrent_tpu_tracker_evicted_total Peers expired by TTL sweeps",
+        "# TYPE torrent_tpu_tracker_evicted_total counter",
+        f"torrent_tpu_tracker_evicted_total {s.get('evicted', 0)}",
+        "# HELP torrent_tpu_tracker_indexed_total Peers seeded by the DHT indexer",
+        "# TYPE torrent_tpu_tracker_indexed_total counter",
+        f"torrent_tpu_tracker_indexed_total {s.get('indexed', 0)}",
+        "# HELP torrent_tpu_tracker_numwant_clamped_total Announces whose numwant was clamped by the reply bounds",
+        "# TYPE torrent_tpu_tracker_numwant_clamped_total counter",
+        f"torrent_tpu_tracker_numwant_clamped_total {s.get('numwant_clamped', 0)}",
+        "# HELP torrent_tpu_tracker_batches_total Drained announce batches processed",
+        "# TYPE torrent_tpu_tracker_batches_total counter",
+        f"torrent_tpu_tracker_batches_total {batch.get('batches', 0)}",
+        "# HELP torrent_tpu_tracker_batched_announces_total Announces that rode a drained batch",
+        "# TYPE torrent_tpu_tracker_batched_announces_total counter",
+        f"torrent_tpu_tracker_batched_announces_total {batch.get('announces', 0)}",
+        "# HELP torrent_tpu_tracker_batch_max Largest announce batch drained in one pump cycle",
+        "# TYPE torrent_tpu_tracker_batch_max gauge",
+        f"torrent_tpu_tracker_batch_max {batch.get('max', 0)}",
+    ]
+
+    def _shard_series(name, kind, help_text, key):
+        lines.append(f"# HELP {name} {help_text}")
+        lines.append(f"# TYPE {name} {kind}")
+        for i, sh in enumerate(named):
+            lines.append(f'{name}{{shard="{i}"}} {sh.get(key, 0)}')
+        if folded:
+            lines.append(
+                f'{name}{{shard="overflow"}} '
+                f"{sum(sh.get(key, 0) for sh in folded)}"
+            )
+
+    _shard_series(
+        "torrent_tpu_tracker_shard_swarms", "gauge",
+        "Swarms tracked per shard", "swarms",
+    )
+    _shard_series(
+        "torrent_tpu_tracker_shard_peers", "gauge",
+        "Peers tracked per shard", "peers",
+    )
+    _shard_series(
+        "torrent_tpu_tracker_shard_announces_total", "counter",
+        "Announces processed per shard", "announces",
+    )
+    idx = s.get("indexer")
+    if isinstance(idx, dict):
+        harvested = idx.get("harvested") or {}
+        lines += [
+            "# HELP torrent_tpu_tracker_indexer_hashes Distinct info-hashes the indexer has discovered (bounded set)",
+            "# TYPE torrent_tpu_tracker_indexer_hashes gauge",
+            f"torrent_tpu_tracker_indexer_hashes {idx.get('hashes', 0)}",
+            "# HELP torrent_tpu_tracker_indexer_harvested_total Inbound DHT queries harvested by kind",
+            "# TYPE torrent_tpu_tracker_indexer_harvested_total counter",
+        ]
+        for kind in ("get_peers", "announce_peer"):
+            lines.append(
+                "torrent_tpu_tracker_indexer_harvested_total"
+                f'{{kind="{kind}"}} {harvested.get(kind, 0)}'
+            )
+        lines += [
+            "# HELP torrent_tpu_tracker_indexer_fed_peers_total Harvested peers fed into the sharded store",
+            "# TYPE torrent_tpu_tracker_indexer_fed_peers_total counter",
+            f"torrent_tpu_tracker_indexer_fed_peers_total {idx.get('fed_peers', 0)}",
+            "# HELP torrent_tpu_tracker_indexer_crawls_total Active crawl steps completed",
+            "# TYPE torrent_tpu_tracker_indexer_crawls_total counter",
+            f"torrent_tpu_tracker_indexer_crawls_total {idx.get('crawls', 0)}",
+            "# HELP torrent_tpu_tracker_indexer_sampled_total Info-hashes received from BEP 51 samples",
+            "# TYPE torrent_tpu_tracker_indexer_sampled_total counter",
+            f"torrent_tpu_tracker_indexer_sampled_total {idx.get('crawl_samples', 0)}",
+        ]
+    return "\n".join(lines) + "\n"
 
 
 # peers named individually on a scrape; the snapshot already folds the
@@ -800,3 +988,192 @@ def render_serve_metrics(snapshot: dict) -> str:
         lambda p: _n(p.get("rejects")),
     )
     return "\n".join(lines) + "\n"
+
+
+def render_metrics(client) -> str:
+    """The /metrics payload for one Client (Prometheus text format 0.0.4).
+
+    Session-level figures come from ``Client.status()`` — the single
+    aggregation every status surface shares — so /metrics can never
+    silently diverge from it."""
+    status = client.status()
+    lines = [
+        "# HELP torrent_tpu_torrents Torrents registered in this client",
+        "# TYPE torrent_tpu_torrents gauge",
+        f"torrent_tpu_torrents {len(client.torrents)}",
+        "# HELP torrent_tpu_peers Connected peers across all torrents",
+        "# TYPE torrent_tpu_peers gauge",
+        f"torrent_tpu_peers {status['peers']}",
+        "# HELP torrent_tpu_downloaded_bytes_total Payload bytes downloaded",
+        "# TYPE torrent_tpu_downloaded_bytes_total counter",
+        f"torrent_tpu_downloaded_bytes_total {status['downloaded']}",
+        "# HELP torrent_tpu_uploaded_bytes_total Payload bytes uploaded",
+        "# TYPE torrent_tpu_uploaded_bytes_total counter",
+        f"torrent_tpu_uploaded_bytes_total {status['uploaded']}",
+    ]
+    per_torrent = [
+        ("torrent_tpu_torrent_peers", "gauge", "Connected peers", lambda t: len(t.peers)),
+        (
+            "torrent_tpu_torrent_pieces_have",
+            "gauge",
+            "Verified pieces on disk",
+            lambda t: t.bitfield.count(),
+        ),
+        (
+            "torrent_tpu_torrent_pieces_total",
+            "gauge",
+            "Pieces in the torrent",
+            lambda t: t.info.num_pieces,
+        ),
+        (
+            "torrent_tpu_torrent_left_bytes",
+            "gauge",
+            "Wanted bytes not yet verified",
+            lambda t: t.left,
+        ),
+        (
+            "torrent_tpu_torrent_downloaded_bytes_total",
+            "counter",
+            "Payload bytes downloaded",
+            lambda t: t.downloaded,
+        ),
+        (
+            "torrent_tpu_torrent_uploaded_bytes_total",
+            "counter",
+            "Payload bytes uploaded",
+            lambda t: t.uploaded,
+        ),
+    ]
+    for name, kind, help_text, get in per_torrent:
+        lines.append(f"# HELP {name} {help_text}")
+        lines.append(f"# TYPE {name} {kind}")
+        for ih, t in client.torrents.items():
+            labels = f'info_hash="{ih.hex()}",name="{_esc(str(t.info.name))}"'
+            lines.append(f"{name}{{{labels}}} {get(t)}")
+    # state as a labeled 0/1 family (the Prometheus idiom for enums)
+    lines.append("# HELP torrent_tpu_torrent_state Torrent lifecycle state (1 = current)")
+    lines.append("# TYPE torrent_tpu_torrent_state gauge")
+    for ih, t in client.torrents.items():
+        current = t.state.name.lower()
+        for state in ("stopped", "checking", "downloading", "seeding"):
+            lines.append(
+                f'torrent_tpu_torrent_state{{info_hash="{ih.hex()}",state="{state}"}} '
+                f"{1 if state == current else 0}"
+            )
+    return "\n".join(lines) + "\n"
+
+
+class MetricsServer:
+    """``GET /metrics`` + ``GET /v1/swarm`` for one Client; anything
+    else is 404. ``/v1/swarm`` serves the swarm wire plane's bounded
+    per-peer telemetry snapshot (obs/swarm) as JSON — the same payload
+    the bridge's route answers, so ``torrent-tpu top --swarm`` can
+    point at either endpoint.
+
+    ``scheduler``: optionally a hash-plane scheduler whose queue/fill/
+    shed counters are appended to the session exposition, so one scrape
+    covers both the swarm and the verify queue it feeds.
+    ``fabric``: optionally a running ``FabricExecutor`` — its per-shard
+    gauges AND its fleet rollup (``torrent_tpu_fleet_*``) join the same
+    exposition, so the session endpoint carries the swarm-wide view just
+    like the bridge's does.
+    ``controller``: optionally a ``SchedulerAutopilot`` whose
+    ``torrent_tpu_control_*`` series join the exposition too — both
+    /metrics endpoints carry the observe→act loop's state."""
+
+    def __init__(self, client, host: str = "127.0.0.1", scheduler=None, fabric=None,
+                 controller=None):
+        self.client = client
+        self.scheduler = scheduler
+        self.fabric = fabric
+        self.controller = controller
+        self.host = host
+        self.port: int | None = None
+        self._server: asyncio.AbstractServer | None = None
+        self._handlers: set[asyncio.Task] = set()
+
+    async def start(self, port: int = 0) -> "MetricsServer":
+        self._server = await asyncio.start_server(self._accept, self.host, port)
+        self.port = self._server.sockets[0].getsockname()[1]
+        return self
+
+    def _accept(self, reader, writer):
+        # tracked so close() can cancel a stalled scraper's handler
+        task = asyncio.ensure_future(self._handle(reader, writer))
+        self._handlers.add(task)
+        task.add_done_callback(self._handlers.discard)
+
+    def close(self) -> None:
+        if self._server is not None:
+            self._server.close()
+        for task in list(self._handlers):
+            task.cancel()
+
+    async def _handle(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
+        try:
+            request = await asyncio.wait_for(reader.readline(), timeout=10)
+            while True:
+                line = await asyncio.wait_for(reader.readline(), timeout=10)
+                if line in (b"\r\n", b"\n", b""):
+                    break
+            parts = request.split()
+            if (
+                len(parts) >= 2
+                and parts[0] == b"GET"
+                and parts[1].split(b"?")[0] == b"/v1/swarm"
+            ):
+                import json as _json
+
+                from torrent_tpu_torch.obs.swarm import swarm_telemetry
+                from torrent_tpu_torch.serve_plane.telemetry import serve_telemetry
+
+                payload = swarm_telemetry().snapshot()
+                serve_obs = serve_telemetry()
+                if serve_obs.active():
+                    # the serving-side view rides the same endpoint: who
+                    # we are feeding, over which egress paths
+                    payload["serve"] = serve_obs.snapshot()
+                body = _json.dumps(payload, sort_keys=True).encode()
+                status = "200 OK"
+                ctype = "application/json"
+            elif len(parts) >= 2 and parts[0] == b"GET" and parts[1].split(b"?")[0] == b"/metrics":
+                text = render_metrics(self.client)
+                if self.scheduler is not None:
+                    text += render_sched_metrics(self.scheduler)
+                if self.fabric is not None:
+                    text += render_fabric_metrics(self.fabric.metrics_snapshot())
+                    text += render_fleet_metrics(self.fabric.fleet_snapshot())
+                if self.controller is not None:
+                    text += render_control_metrics(
+                        self.controller.metrics_snapshot()
+                    )
+                from torrent_tpu_torch.obs import render_obs_metrics
+
+                text += render_obs_metrics()
+                # SLO-series parity with the bridge: when this process
+                # armed an engine (obs/slo), its budget/burn/breach
+                # series join the session exposition too
+                from torrent_tpu_torch.obs.slo import armed as _slo_armed
+
+                engine = _slo_armed()
+                if engine is not None:
+                    text += render_slo_metrics(engine.report())
+                body = text.encode()
+                status = "200 OK"
+                ctype = "text/plain; version=0.0.4; charset=utf-8"
+            else:
+                body = b"not found\n"
+                status = "404 Not Found"
+                ctype = "text/plain"
+            writer.write(
+                (
+                    f"HTTP/1.1 {status}\r\nContent-Type: {ctype}\r\n"
+                    f"Content-Length: {len(body)}\r\nConnection: close\r\n\r\n"
+                ).encode("latin-1")
+                + body
+            )
+            await writer.drain()
+        except (ConnectionError, asyncio.TimeoutError, asyncio.LimitOverrunError, ValueError, OSError):
+            pass
+        finally:
+            writer.close()
