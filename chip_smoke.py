@@ -289,9 +289,29 @@ Phases (any failure exits non-zero, and no phase hides an error):
    traceback. Printed beside the card's name and power limit: each
    command's wall, the 2 GiB recheck's pieces/s, the doctor's checks and
    wall, both download walls and their ratio, and phase 13's wall.
+14. The bench and the kernel tuners on the card, through ``tools.cli.main``
+   in this process. 14a: ``bench e2e --hasher gpu --mb 1024`` three times
+   (a fresh 1 GiB file of 256 KiB pieces each, rechecked through the
+   scheduler's zero-copy ingest; each must grow the SHA-1 counter and
+   leave no slab outstanding) and ``--hasher cpu`` once; each pieces/s,
+   the gpu runs' spread and hashlib's rate are printed. 14b: ``bench
+   flagship`` (8192 x 256 KiB) and ``bench v2`` through the port's device
+   bench (``tools/device_bench.py``) in a child process: non-null values,
+   ``platform`` ``cuda``, median-of-3 fields on the host clock and on CUDA
+   events, and the child's own launch counts (SHA-1; SHA-256 rows and
+   merkle). 14c: the median e2e record compared (unarmed), banked and
+   compared again (armed, passing) in a trajectory under the smoke's
+   temporary directory; the repo's ``BENCH_trajectory.json`` must keep its
+   hash. 14d: ``tools/tune_sha1`` (grid ``4.3.2,2.2.2``, 4096 x 256 KiB)
+   and ``tools/tune_sha256`` (grid ``32,64``, 32768 x 16 KiB): every
+   variant is built from the checkout's source and its digests of the
+   whole batch equal hashlib's before it is timed; the production
+   counters and libraries must not change. Each variant's ms, share of
+   the operations bound, registers and build seconds are printed, and the
+   kernels record carries them under ``variants``.
 
 The line before the last is the kernels' JSON record (its ``launches``
-are phases 4 and 5's; phases 7 to 13 print their own); the last line is
+are phases 4 and 5's; phases 7 to 14 print their own); the last line is
 ``{"ok": true, "device": {...}}``. The page cache holds the payload when
 it is rechecked (it was just written), so the end-to-end rates measure
 reads from memory, padding, copies and the kernels, not a disk.
@@ -2726,9 +2746,143 @@ def cli_phase(tmp: str, single: str, multi_root: str, rng, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 14
+
+BENCH_E2E_MB = 1024  # 14a's e2e recheck: 4096 pieces of 256 KiB (the rung's default shape)
+BENCH_E2E_RUNS = 3  # 14a's --hasher gpu runs (the spread), beside one hashlib run
+BENCH_RUNG_TIMEOUT_S = 600  # a device-bench child's limit
+TUNE_SHA1_GRID = "4.3.2,2.2.2"  # the production knobs (wk.raw.sched) and one variant
+TUNE_SHA256_GRID = "32,64"  # the production rows block and one variant
+TUNE_ITERS = 8
+
+
+def bench_phase(tmp: str, card: str) -> dict:
+    """Phase 14: the bench (``tools/bench_cli.py`` through ``tools.cli.main``,
+    its device rungs the port's ``tools/device_bench.py`` in a child
+    process) and the kernel tuners (``tools/tune_sha1.py``,
+    ``tools/tune_sha256.py``) on the card."""
+    from torrent_tpu_torch.ops import sha1_cuda, sha256_cuda
+    from torrent_tpu_torch.tools import tune_sha1, tune_sha256
+
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "bench")
+    os.makedirs(d)
+    traj = os.path.join(d, "BENCH_trajectory_cuda.json")
+    repo_traj = os.path.join(REPO, "BENCH_trajectory.json")
+
+    def file_hash(path):
+        if not os.path.exists(path):
+            return None
+        with open(path, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    repo_traj_hash = file_hash(repo_traj)
+    out: dict = {"launches": {}}
+
+    def bench(argv: list, label: str) -> dict:
+        path = os.path.join(d, f"{label}.json")
+        rc, stdout, err, s = cli_in_process(["bench", *argv, "--out", path])
+        check(rc == 0, f"bench {label}: exit {rc}: {err[-2000:]}")
+        with open(path) as f:
+            rec = json.load(f)
+        check(json.loads(stdout.strip().splitlines()[-1]) == rec, f"bench {label}: stdout differs from --out")
+        return rec, s
+
+    # 14a: the e2e rung, scheduler-fed, in this process
+    e2e = []
+    for i in range(BENCH_E2E_RUNS):
+        sha1_cuda.sha1_pieces_cuda.launches = 0
+        rec, s = bench(["e2e", "--hasher", "gpu", "--mb", str(BENCH_E2E_MB)], f"e2e_gpu_{i}")
+        n = sha1_cuda.sha1_pieces_cuda.launches
+        check(rec["value"] is not None and rec["platform"] == "cuda" and rec["valid"] == rec["pieces"],
+              f"14a e2e gpu run {i}: {rec}")
+        check(n > 0, f"14a e2e gpu run {i} launched the SHA-1 kernel no time")
+        check(rec["staging_outstanding"] == 0, f"14a e2e gpu run {i}: {rec['staging_outstanding']} slabs outstanding")
+        out["launches"][f"e2e gpu {i}"] = n
+        e2e.append((rec, s))
+    cpu_rec, cpu_s = bench(["e2e", "--hasher", "cpu", "--mb", str(BENCH_E2E_MB)], "e2e_cpu")
+    check(cpu_rec["value"] is not None and cpu_rec["platform"] == "cpu", f"14a e2e cpu: {cpu_rec}")
+    values = sorted(r["value"] for r, _ in e2e)
+    median = values[len(values) // 2]
+    spread = (values[-1] - values[0]) / median
+    for i, (rec, s) in enumerate(e2e):
+        log(
+            f"time: bench e2e gpu run {i} {rec['pieces']} x {rec['piece_kb']} KiB pieces/s={rec['value']} "
+            f"GiB/s={rec['gib_per_sec']} recheck s={rec['seconds']} (command s={s:.3f}) sha1 launches="
+            f"{out['launches'][f'e2e gpu {i}']} bottleneck={(rec['ledger']['bottleneck'] or {}).get('stage')} {card}"
+        )
+    log(
+        f"time: bench e2e gpu median pieces/s={median} spread={spread:.3f} (max-min over median of "
+        f"{BENCH_E2E_RUNS}); hashlib pieces/s={cpu_rec['value']} recheck s={cpu_rec['seconds']} {card}"
+    )
+    out["e2e"] = {"values": [r["value"] for r, _ in e2e], "spread": spread, "cpu": cpu_rec["value"]}
+
+    # 14b: the device rungs, each a child process of the port's device bench
+    for rung, kernels in (("flagship", ("sha1_cuda",)), ("v2", ("sha256_cuda", "sha256_merkle_cuda"))):
+        rec, s = bench([rung, "--timeout", str(BENCH_RUNG_TIMEOUT_S)], rung)
+        check(rec["value"] is not None and rec["platform"] == "cuda" and rec["backend"] == "cuda",
+              f"14b {rung}: {rec}")
+        check(rec["n_runs"] == 3 and len(rec["runs_pps"]) == 3 and rec["spread"] is not None,
+              f"14b {rung}: no median-of-3 fields {rec}")
+        check(rec["device_runs_pps"] and len(rec["device_runs_pps"]) == 3, f"14b {rung}: no CUDA-event runs {rec}")
+        for k in kernels:
+            check(rec["launches"][k] > 0, f"14b {rung}: the child launched {k} no time: {rec['launches']}")
+        log(
+            f"time: bench {rung} ({rec['metric']}, batch {rec['batch']}) hash plane pieces/s={rec['value']} "
+            f"runs={rec['runs_pps']} spread={rec['spread']} CUDA-event pieces/s={rec['device_value']} "
+            f"runs={rec['device_runs_pps']}; end to end pieces/s={rec['end_to_end_pps']}; vs hashlib "
+            f"{rec['vs_baseline']}x plane, {rec['end_to_end_vs_baseline']}x end to end; h2d MiB/s="
+            f"{rec.get('h2d_mib_s')}; child launches {rec['launches']}; command s={s:.3f} {card}"
+        )
+        out[rung] = rec
+        out["launches"][rung] = rec["launches"]
+
+    # 14c: bank, then compare, into the smoke's own trajectory
+    e2e_median = os.path.join(d, f"e2e_gpu_{[r['value'] for r, _ in e2e].index(median)}.json")
+    rc, _, err, _ = cli_in_process(["bench", "--record", e2e_median, "--compare", "--trajectory", traj])
+    check(rc == 0 and "unarmed" in err, f"14c compare before banking: {rc} {err[-1000:]}")
+    rc, _, err, _ = cli_in_process(["bench", "--record", e2e_median, "--bank", "--trajectory", traj])
+    check(rc == 0 and os.path.exists(traj), f"14c bank: {rc} {err[-1000:]}")
+    rc, _, err, _ = cli_in_process(["bench", "--record", e2e_median, "--compare", "--trajectory", traj])
+    check(rc == 0 and "comparator ok" in err, f"14c compare after banking (armed): {rc} {err[-1000:]}")
+    check(file_hash(repo_traj) == repo_traj_hash, "14c the repo's BENCH_trajectory.json changed")
+    log(f"phase 14: 14c banked the median e2e record; the compare before banking was unarmed, after it armed: "
+        f"{err.strip().splitlines()[-1]}; the repo's BENCH_trajectory.json unchanged")
+
+    # 14d: the tuners, each variant bit-exact against hashlib before it is timed
+    before = (sha1_cuda.sha1_pieces_cuda.launches, sha256_cuda.sha256_pieces_cuda.launches)
+    prod_mtime = (sha1_cuda.LIBRARY.stat().st_mtime, sha256_cuda.LIBRARY.stat().st_mtime)
+    sweeps = {
+        "sha1_cuda": tune_sha1.run_sweep(256, BATCH, tune_sha1.parse_grid(TUNE_SHA1_GRID), TUNE_ITERS),
+        "sha256_cuda": tune_sha256.run_sweep(16, LEAF_LAUNCH, tune_sha256.parse_grid(TUNE_SHA256_GRID), TUNE_ITERS),
+    }
+    after = (sha1_cuda.sha1_pieces_cuda.launches, sha256_cuda.sha256_pieces_cuda.launches)
+    check(after == before, f"14d the tuners grew the production counters {before} -> {after}")
+    check((sha1_cuda.LIBRARY.stat().st_mtime, sha256_cuda.LIBRARY.stat().st_mtime) == prod_mtime,
+          "14d the tuners rebuilt a production library")
+    for name, records in sweeps.items():
+        check(len(records) == 2 and sum(r["default"] for r in records) == 1, f"14d {name}: {records}")
+        for r in records:
+            log(
+                f"time: tune {name} {r['knobs']}{' (production knobs)' if r['default'] else ''} rank {r['rank']} "
+                f"ms={r['ms']} pieces/s={r['pieces_per_sec']} GB/s={r['gb_per_sec']} bound_ms={r['bound_ms']} "
+                f"({r['bound_by']}) share of the operations bound={r['ops_bound_share']} registers={r['registers']} "
+                f"spills={r['spill_stores']} smem={r.get('dynamic_smem_bytes', r['static_smem_bytes'])} "
+                f"build s={r['build_s']}; {r['rows_checked']} rows equal to hashlib {card}"
+            )
+    out["variants"] = {
+        name: [{k: r[k] for k in ("knobs", "default", "ms", "ops_bound_share", "build_s")} for r in records]
+        for name, records in sweeps.items()
+    }
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"time: bench phase 14 wall s={out['phase_s']:.3f} {card}")
+    return out
+
+
 def main() -> dict:
     import torch
 
+    t_smoke = time.perf_counter()
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is False: this script needs a GPU")
     if not os.path.isdir(os.path.join(REPO, "torrent_tpu_torch")):
@@ -3266,6 +3420,9 @@ def main() -> dict:
 
         # ----------------------------------------------------------- 13
         cli_launches = cli_phase(tmp, single, multi_root, rng, card)
+
+        # ----------------------------------------------------------- 14
+        bench_out = bench_phase(tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3412,10 +3569,12 @@ def main() -> dict:
 
     kernels = {
         "kernels": [
-            record("sha1_cuda", "torrent_tpu_torch/csrc/sha1.cu", "torrent_tpu/ops/sha1_pallas.py:151",
-                   main_launches, max_abs_err, ms_256, plain_ms, bound_256, by_256),
-            record("sha256_cuda", "torrent_tpu_torch/csrc/sha256.cu", "torrent_tpu/ops/sha256_pallas.py:200",
-                   v2_launches["sha256_cuda"], err256, ms_leaf, plain256_ms, bound_leaf, by_leaf),
+            {**record("sha1_cuda", "torrent_tpu_torch/csrc/sha1.cu", "torrent_tpu/ops/sha1_pallas.py:151",
+                      main_launches, max_abs_err, ms_256, plain_ms, bound_256, by_256),
+             "variants": bench_out["variants"]["sha1_cuda"]},
+            {**record("sha256_cuda", "torrent_tpu_torch/csrc/sha256.cu", "torrent_tpu/ops/sha256_pallas.py:200",
+                      v2_launches["sha256_cuda"], err256, ms_leaf, plain256_ms, bound_leaf, by_leaf),
+             "variants": bench_out["variants"]["sha256_cuda"]},
             record("sha256_pairs_cuda", "torrent_tpu_torch/csrc/sha256.cu", "torrent_tpu/models/merkle.py:30",
                    v2_launches["sha256_pairs_cuda"], err_pairs, pair_rec["device_ms"], plain_pairs_ms,
                    pair_rec["bound_ms"], pair_rec["bound_by"]),
@@ -3434,9 +3593,11 @@ def main() -> dict:
     log(f"phase 11: magnet path launches {magnet_launches}")
     log(f"phase 12: serving path launches {serving_launches}")
     log(f"phase 13: command-line path launches {cli_launches}")
-    log(json.dumps(kernels))
+    log(f"phase 14: bench path launches {bench_out['launches']}")
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "torrent_tpu"))
     check(not leaked, f"the port imported {leaked}")
+    log(f"time: chip_smoke wall s={time.perf_counter() - t_smoke:.3f} (the kernels' builds included) {card}")
+    log(json.dumps(kernels))
     return {"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}
 
 

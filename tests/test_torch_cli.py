@@ -19,10 +19,11 @@ Four parts:
   pieces: the plain SHA-1 takes seconds a launch on a CPU;
 - the parser against the reference's: the same subcommands in the same
   order with the same flags, apart from the listed divergences;
-- what the CLI refuses: ``bench`` and ``lint`` exit 2 with one line, and
-  the default ``gpu`` hasher on a host without CUDA is an error with no
-  verdict. The entry point alone (``python -m torrent_tpu_torch --help``)
-  loads no jax.
+- what the CLI refuses: ``lint`` exits 2 with one line (``bench``
+  without a rung exits 2 with the reference's usage error, and with one
+  delegates to ``tools/bench_cli.py``), and the default ``gpu`` hasher on
+  a host without CUDA is an error with no verdict. The entry point alone
+  (``python -m torrent_tpu_torch --help``) loads no jax.
 """
 
 import asyncio
@@ -1116,7 +1117,32 @@ class TestRefusals:
          (["lint"], "torrent_tpu_torch.analysis"),
          (["lint", "--json", "--no-baseline"], "torrent_tpu_torch.analysis")],
     )
-    def test_unported_subcommands_exit_2_with_one_line(self, argv, module, capsys):
+    def test_unported_subcommands_exit_2_with_one_line(self, argv, module, capsys, monkeypatch, tmp_path):
+        """``lint`` is not ported yet: one line, exit 2. ``bench`` is: with
+        no rung it exits 2 with the reference's usage error (one line),
+        and ``bench smoke`` delegates to ``module`` and prints one
+        banked-schema record."""
+        if module.endswith("bench_cli"):
+            import importlib
+
+            bench_cli = importlib.import_module(module)
+            calls = []
+            real = bench_cli.main
+            monkeypatch.setattr(bench_cli, "main", lambda a: calls.append(a) or real(a))
+            monkeypatch.setenv("TORRENT_TPU_BENCH_TRAJECTORY", str(tmp_path / "traj.json"))
+            rc = main(argv)
+            cap = capsys.readouterr()
+            assert len(calls) == 1 and calls[0][: len(argv) - 1] == argv[1:]
+            if len(argv) == 1:
+                assert rc == 2 and cap.out == ""
+                lines = cap.err.strip().splitlines()
+                assert len(lines) == 1 and lines[0].startswith("error: name a rung")
+            else:
+                assert rc == 0
+                rec = json.loads(cap.out.strip())
+                assert rec["schema"] == "torrent-tpu-bench/1" and rec["rung"] == "smoke"
+                assert rec["value"] is not None and rec["bytes"] == 2 << 20
+            return
         assert main(argv) == 2
         cap = capsys.readouterr()
         assert cap.out == ""

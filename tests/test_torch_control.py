@@ -1,9 +1,10 @@
 """The port's scheduler autopilot (torrent_tpu_torch/sched/control.py),
 against the reference.
 
-The reference's tests/test_control.py, ported (its ``top``,
-bridge and ``bench controller`` cases wait for later slices; ROADMAP.md
-lists them). Covers the
+The reference's tests/test_control.py, ported (its ``bench
+controller`` and trajectory cases are in tests/test_torch_bench_cli.py;
+its ``top`` and bridge cases are in their own files or wait for later
+slices; ROADMAP.md lists them). Covers the
 observe→act loop:
 
 * the pure decision core: grow/shrink laws, hysteresis (a flapping

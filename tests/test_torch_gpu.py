@@ -1247,3 +1247,153 @@ def test_doctor_swarm_smoke_on_card(cuda, tmp_path):
     before = _counts()
     asyncio.run(asyncio.wait_for(doctor._swarm_smoke(str(tmp_path)), 90))
     assert _counts()[0] > before[0]
+
+
+# ------------------------------------------------- kernel variants and bench
+
+
+def _ragged_rows(device, seed, lens, sentinels=()):
+    rng = np.random.default_rng(seed)
+    pieces = [rng.bytes(n) for n in lens]
+    data, nb = on_card(pieces, device, sentinels)
+    want = [hashlib.sha1(p).digest() if i not in sentinels else None for i, p in enumerate(pieces)]
+    return pieces, data, nb, want
+
+
+def test_sha1_variant_matches_hashlib(cuda):
+    """A non-default SHA-1 build (a 2-stage W+K ring, 2-stage raw rings)
+    on ragged rows across a partial 32-piece CTA, and its sentinel rows,
+    against hashlib and the production kernel."""
+    from torrent_tpu_torch.ops import sha1_cuda
+
+    variant = sha1_cuda.load_variant(wk_stages=2, raw_stages=2, schedule_warps=2)
+    assert variant.knobs == {"wk_stages": 2, "raw_stages": 2, "schedule_warps": 2}
+    assert variant.library.name.startswith("libtorrent_tpu_torch_sha1_wk2_raw2_sched2_")
+    assert variant.lib.tt_sha1_smem_bytes() == sha1_cuda.variant_smem_bytes(2, 2, 2)
+    lens = [0, 1, 55, 64, 65, 300, 16384, 65536 + 7] * 5
+    _, data, nb, want = _ragged_rows(cuda, 1401, lens, sentinels=(3,))
+    got = digests(variant.launch(data, nb))
+    prod = sha1_pieces_cuda(data, nb)
+    torch.cuda.synchronize()
+    assert [g for i, g in enumerate(got) if i != 3] == [w for w in want if w is not None]
+    assert got == digests(prod)
+
+
+def test_sha256_variant_matches_hashlib(cuda):
+    """A non-default SHA-256 rows block (128 threads) on ragged rows and
+    a sentinel row, against hashlib and the production kernel."""
+    from torrent_tpu_torch.ops import sha256_cuda
+
+    variant = sha256_cuda.load_variant(row_threads=128)
+    assert variant.lib.tt_sha256_row_threads() == 128
+    rng = np.random.default_rng(1402)
+    pieces = [rng.bytes(n) for n in [0, 1, 55, 56, 64, 300, 8191, 16384] * 40]
+    data, nb = on_card(pieces, cuda, sentinels=(5,))
+    got = digests(variant.launch(data, nb))
+    prod = digests(sha256_pieces_cuda(data, nb))
+    assert got == prod
+    assert [g for i, g in enumerate(got) if i != 5] == [
+        hashlib.sha256(p).digest() for i, p in enumerate(pieces) if i != 5
+    ]
+
+
+def test_load_variant_leaves_production_untouched(cuda):
+    """Building and launching variants changes neither the production
+    libraries' path and mtime nor their launch counters."""
+    from torrent_tpu_torch.ops import sha1_cuda, sha256_cuda
+
+    sha1_cuda._load()
+    sha256_cuda._load()
+    libs = {m.LIBRARY: m.LIBRARY.stat().st_mtime_ns for m in (sha1_cuda, sha256_cuda)}
+    handles = (sha1_cuda._lib, sha256_cuda._lib)
+    before = _counts()
+    v1 = sha1_cuda.load_variant(force=True, wk_stages=8, raw_stages=3, schedule_warps=2)
+    v2 = sha256_cuda.load_variant(force=True, row_threads=64)
+    assert v1.library.parent.name == "variants" and v1.library != sha1_cuda.LIBRARY
+    assert v2.library.parent.name == "variants" and v2.library != sha256_cuda.LIBRARY
+    _, data, nb, _ = _ragged_rows(cuda, 1403, [4096] * 40)
+    v1.launch(data, nb)
+    v2.launch(data, nb)
+    torch.cuda.synchronize()
+    assert _counts() == before
+    assert (sha1_cuda._lib, sha256_cuda._lib) == handles
+    assert {m: m.stat().st_mtime_ns for m in libs} == libs
+    assert v1.report and "registers" in v1.report and v1.build_s > 0
+
+
+def test_tuners_rank_variants_on_card(cuda, capsys):
+    """Both tuners' command lines at small batches: one ranked line a
+    variant, every one checked against hashlib, and a best line with the
+    winner's -D flags."""
+    import json
+
+    from torrent_tpu_torch.tools import tune_sha1, tune_sha256
+
+    assert tune_sha1.main(["--grid", "4.3.2,2.2.2", "--batch", "64", "--piece-kb", "64", "--iters", "2"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [r["rank"] for r in lines[:2]] == [1, 2] and lines[0]["ms"] <= lines[1]["ms"]
+    assert sum(r["default"] for r in lines[:2]) == 1 and all(r["rows_checked"] == 64 for r in lines[:2])
+    assert lines[2]["nvcc_defines"] == lines[0]["defines"] and lines[2]["best"]["registers"] > 0
+    assert tune_sha256.main(["--grid", "32,64", "--batch", "256", "--iters", "2"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert len(lines) == 3 and lines[2]["nvcc_defines"][0].startswith("-DTT_SHA256_ROW_THREADS=")
+
+
+def test_bench_e2e_gpu_on_card(cuda, tmp_path):
+    """``bench e2e --hasher gpu --mb 64`` through the command line: a
+    non-null rate on ``cuda``, the SHA-1 counter grown, every slab back."""
+    import json
+
+    from torrent_tpu_torch.tools.cli import main
+
+    before = _counts()
+    out = tmp_path / "rec.json"
+    assert main(["bench", "e2e", "--hasher", "gpu", "--mb", "64", "--out", str(out)]) == 0
+    rec = json.loads(out.read_text())
+    assert rec["value"] is not None and rec["platform"] == "cuda" and rec["plane"] == "gpu"
+    assert rec["valid"] == rec["pieces"] == 256 and rec["staging_outstanding"] == 0
+    assert _counts()[0] > before[0]
+
+
+def test_bench_fabric_gpu_workers_on_card(cuda, tmp_path):
+    """``tools/bench_fabric.py`` with its default hasher: two
+    ``fabric-verify`` workers on the card verify a small library whole,
+    each with its own ledger breakdown."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "torrent_tpu_torch.tools.bench_fabric", "--workdir", str(tmp_path),
+         "--nproc", "2", "--reps", "1", "--torrents", "2", "--mb-per-torrent", "4",
+         "--piece-kb", "256"],
+        cwd=repo, capture_output=True, text=True, timeout=600,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    (rec,) = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    assert rec["hasher"] == "gpu" and rec["valid"] == rec["pieces"] > 0
+    assert rec["gib_per_sec"] > 0 and len(rec["per_process"]) == 2
+    assert sum(p["pieces_verified"] for p in rec["per_process"]) == rec["pieces"]
+
+
+def test_device_bench_v2_on_card(cuda, tmp_path):
+    """The device bench's v2 config in a child process on the card: the
+    record names ``cuda`` and its SHA-256 row and merkle launches."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, BENCH_CONFIG="v2", BENCH_TOTAL_MB="32", BENCH_V2_NRES="3",
+               BENCH_H2D_MB="8", BENCH_BANK_DIR=str(tmp_path), TORRENT_TPU_LEAF_BATCH="4096")
+    env.pop("BENCH_PLATFORM", None)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-m", "torrent_tpu_torch.tools.device_bench"], env=env,
+                          cwd=repo, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert rec["value"] > 0 and rec["platform"] == "cuda" and rec["backend"] == "cuda"
+    assert rec["launches"]["sha256_cuda"] > 0 and rec["launches"]["sha256_merkle_cuda"] > 0
+    assert len(rec["device_runs_pps"]) == 3

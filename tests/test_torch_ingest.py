@@ -1,7 +1,7 @@
 """The port's zero-copy ingest pipeline: disk→slot→device streaming.
 
 The reference's tests/test_ingest.py, ported (its ``bench e2e`` rung
-waits for the port's tools slice). Covers:
+case is in tests/test_torch_bench_cli.py). Covers:
 
 * ``read_pieces_into`` vs ``read_pieces_chunk`` differential — identical
   bitfields on multi-file torrents with torn/short/unreadable pieces,

@@ -92,6 +92,7 @@ MIRRORED = (
     "tools/netbench.py",
     "tools/top.py",
     "tools/cli.py",
+    "tools/bench_cli.py",
 )
 DIVERGENCES = {
     # the lockset sanitizer (analysis/sanitizer.py) is not ported: what
@@ -137,7 +138,7 @@ DIVERGENCES = {
     },
     # the command line: every hashing subcommand takes --hasher gpu|cpu
     # (default gpu, the card) and --device; fabric-verify is
-    # tools/fabric_verify.py's; bench and lint wait for their modules
+    # tools/fabric_verify.py's; lint waits for its module
     "tools/cli.py": {
         "_feed_loop": "the subscriber's ClientConfig takes --hasher and --device",
         "_cmd_make": "make_torrent takes --device",
@@ -152,7 +153,7 @@ DIVERGENCES = {
         "_cmd_fabric_verify": "shuts the process group down after the sweep",
         "_cmd_lint": "exits 2 with one line until the analysis plane is ported",
         "_cmd_doctor": "forwards --device; no re-exec comment",
-        "_cmd_bench": "exits 2 with one line until tools/bench_cli.py is ported",
+        "_cmd_bench": "forwards --device to tools/bench_cli.py",
         "_download": "the ClientConfig takes --device",
         "_cmd_bridge": "the port's bridge command (bridge/__main__.py), with --device",
         "build_parser": (
@@ -165,6 +166,32 @@ DIVERGENCES = {
             "error line and exit 1"
         ),
     },
+}
+
+
+DIVERGENCES["tools/bench_cli.py"] = {
+    # the port's device bench and fabric measurer are modules of the
+    # package (the reference's rungs shell out to the repo's bench.py and
+    # .bench/measure_fabric.py, which import jax); there is one sha256
+    # plane, so no backend env; the hash plane is the card's
+    "<statement 16: Assign>": "_DEVICE_RUNG_ENV: no TORRENT_TPU_SHA256_BACKEND",
+    "default_trajectory_path": (
+        "TORRENT_TPU_BENCH_TRAJECTORY or ./BENCH_trajectory_cuda.json, never "
+        "the repo's BENCH_trajectory.json (the reference's TPU and CPU records)"
+    ),
+    "_build_smoke_torrent": 'authors with hashlib (hasher="cpu"): the port\'s default is the card',
+    "_e2e": 'takes device; hasher "gpu" | "cpu"; platform is "cpu" or the device type',
+    "_swarm_rung": "both clients take hasher and device; platform is the plane's device",
+    "_seed_rung": "the seed takes hasher and device; platform is the plane's device",
+    "_run_bench_py": (
+        "runs python -m torrent_tpu_torch.tools.device_bench; device becomes "
+        "BENCH_PLATFORM"
+    ),
+    "_run_fabric_rung": (
+        "runs python -m torrent_tpu_torch.tools.bench_fabric, no jax env; takes "
+        "hasher and device (not FABRIC_HASHER); platform is the plane's device"
+    ),
+    "main": "--hasher gpu|cpu (default gpu) and --device reach the rungs",
 }
 
 

@@ -128,6 +128,11 @@ def test_package_has_the_slice():
         "torrent_tpu_torch.tools.cli",
         "torrent_tpu_torch.tools.top",
         "torrent_tpu_torch.tools.doctor",
+        "torrent_tpu_torch.tools.bench_cli",
+        "torrent_tpu_torch.tools.device_bench",
+        "torrent_tpu_torch.tools.bench_fabric",
+        "torrent_tpu_torch.tools.tune_sha1",
+        "torrent_tpu_torch.tools.tune_sha256",
     ):
         assert name in MODULES
     assert (PACKAGE / "csrc" / "sha1.cu").is_file()

@@ -3,9 +3,10 @@ latency histograms, flight recorder, pipeline ledger and bottleneck
 attributor, and their scheduler integrations.
 
 The cases of the reference's tests/test_obs.py and tests/test_pipeline.py
-that touch only ported modules, ported. The bridge, sanitizer,
-trace-CLI, ``doctor``, ``bench``, ``top`` and trajectory cases wait for
-later slices (ROADMAP.md lists them). The profiler case runs on
+that touch only ported modules, ported. The bench and trajectory cases
+are in tests/test_torch_bench_cli.py; the bridge, sanitizer, trace-CLI,
+``doctor`` and ``top`` cases are in their own files or wait for later
+slices (ROADMAP.md lists them). The profiler case runs on
 ``torch.profiler`` in place of ``jax.profiler``.
 """
 

@@ -484,6 +484,58 @@ class TestMetricsConstantParity:
         assert _SERVE_REJECT_REASONS == REJECT_REASONS
 
 
-# The reference file's TestBenchSeedRung and TestTrajectorySeedKeys
-# exercise tools/bench_cli.py and the bench summariser, which wait for
-# ROADMAP Queue 1 item 10.3 (bench_cli with a torch device bench).
+class TestBenchSeedRung:
+    def test_seed_rung_record_schema(self):
+        from torrent_tpu_torch.tools.bench_cli import SCHEMA, _seed_rung
+
+        # the seed's recheck on hashlib, the reference's default
+        rec = run(_seed_rung(1, 64, 6, hasher="cpu"), timeout=240)
+        assert rec["schema"] == SCHEMA
+        assert rec["rung"] == "seed"
+        assert rec["value"] is not None and rec["value"] > 0
+        assert rec["unit"] == "MiB/s"
+        assert rec["leechers"] == 6
+        assert rec["bytes"] == 6 << 20
+        assert rec["bytes_up"] >= rec["bytes"]
+        assert rec["block_p99_ms"] >= rec["block_p50_ms"] > 0
+        # the serve plane's evidence rides the banked rate
+        zero_copy = sum(
+            rec["serve"]["paths"].get(k, {}).get("blocks", 0)
+            for k in ("sendfile", "preadv")
+        )
+        assert zero_copy > 0
+        assert rec["serve"]["rounds"] > 0
+        assert rec["serve"]["optimistic_rotations"] > 0
+        assert "egress" in (rec["ledger"]["stages"] or {})
+        for key in ("piece_kb", "bytes", "nproc", "platform", "batch"):
+            assert key in rec
+        assert rec["platform"] == "cpu" and rec["plane"] == "cpu"
+
+
+class TestTrajectorySeedKeys:
+    def test_normalize_preserves_seed_keys(self):
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location(
+            "summarize",
+            os.path.join(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))), ".bench", "summarize.py"),
+        )
+        summarize = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(summarize)
+        rec = {
+            "metric": "seed_64leech_256KiB_upload_MiB_per_sec",
+            "value": 1.8, "unit": "MiB/s", "rung": "seed",
+            "leechers": 64, "block_p50_ms": 8.5, "block_p99_ms": 86.26,
+            "blocks": 32768, "bytes_up": 536870912,
+            "serve": {"paths": {"sendfile": {"blocks": 32768}},
+                      "optimistic_rotations": 363},
+            "ledger": {"stages": {"egress": {"busy_s": 12.5}}},
+            "piece_kb": 256, "bytes": 512 << 20, "nproc": 1,
+            "platform": "cpu", "batch": None,
+        }
+        out = summarize._normalize(rec, "bench_seed.json")
+        for key in ("leechers", "block_p50_ms", "block_p99_ms", "blocks",
+                    "bytes_up", "serve", "ledger", "piece_kb", "bytes"):
+            assert out[key] == rec[key]
+        assert not out["non_like_for_like"]

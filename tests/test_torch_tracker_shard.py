@@ -5,8 +5,9 @@ store (shard routing, O(numwant) reservoir sampling, swap-remove
 consistency, server-side reply bounds, per-shard TTL sweeps, batch
 processing), service-level coverage over the real HTTP/UDP transports
 (the port's client against the port's sharded server) and the tracker
-/metrics route. The CLI guard, the doctor smoke and the bench rung wait
-for those tools.
+/metrics route. The CLI guard and the doctor smoke are in
+tests/test_torch_cli.py and tests/test_torch_doctor.py, the bench rung's
+cases in tests/test_torch_bench_cli.py.
 """
 
 import asyncio

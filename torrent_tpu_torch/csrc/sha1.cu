@@ -89,11 +89,25 @@
 
 namespace {
 
+// The launch design's three knobs are compile-time parameters, so that
+// torrent_tpu_torch/tools/tune_sha1.py can build variants with -D flags
+// (ops/sha1_cuda.py::load_variant). The defaults are the production
+// kernel's; the static_asserts below hold every variant.
+#ifndef TT_SHA1_SCHEDULE_WARPS
+#define TT_SHA1_SCHEDULE_WARPS 2
+#endif
+#ifndef TT_SHA1_WK_STAGES
+#define TT_SHA1_WK_STAGES 4
+#endif
+#ifndef TT_SHA1_RAW_STAGES
+#define TT_SHA1_RAW_STAGES 3
+#endif
+
 constexpr int kPieces = 32;             // pieces per CTA, one lane each
-constexpr int kScheduleWarps = 2;       // block j goes to schedule warp j % 2
+constexpr int kScheduleWarps = TT_SHA1_SCHEDULE_WARPS;  // block j: schedule warp j % this
 constexpr int kThreads = 32 * (1 + kScheduleWarps);
-constexpr int kWkStages = 4;            // W+K ring: block j in stage j % 4
-constexpr int kRawStages = 3;           // raw ring of each schedule warp
+constexpr int kWkStages = TT_SHA1_WK_STAGES;    // W+K ring: block j in stage j % this
+constexpr int kRawStages = TT_SHA1_RAW_STAGES;  // raw ring of each schedule warp
 constexpr int kQuads = 20;              // 80 words as 20 uint4 per piece
 constexpr int kWkStageBytes = kQuads * kPieces * 16;
 constexpr int kRawStageBytes = kPieces * 64;
@@ -103,6 +117,7 @@ constexpr int kBarriers = 2 * kWkStages;
 constexpr int kSmemBytes = kWkBytes + kRawBytes + kBarriers * 8 + kPieces * 4;
 constexpr uint64_t kWaitLimitNs = 10ull * 1000 * 1000 * 1000;
 
+static_assert(kScheduleWarps >= 1 && kWkStages >= 1 && kRawStages >= 1, "every ring needs a stage");
 static_assert(kWkStages % kScheduleWarps == 0, "each W+K stage needs a single producer");
 static_assert(kSmemBytes <= 232448, "over Hopper's 227 KB of shared memory per block");
 

@@ -90,7 +90,16 @@
 
 namespace {
 
-constexpr int kRowThreads = 32;
+// The rows kernel's block is a compile-time parameter, so that
+// torrent_tpu_torch/tools/tune_sha256.py can build variants with -D flags
+// (ops/sha256_cuda.py::load_variant); the default is the production one.
+#ifndef TT_SHA256_ROW_THREADS
+#define TT_SHA256_ROW_THREADS 32
+#endif
+
+constexpr int kRowThreads = TT_SHA256_ROW_THREADS;  // threads (rows) a block
+static_assert(kRowThreads % 32 == 0 && kRowThreads >= 32 && kRowThreads <= 1024,
+              "a rows block is whole warps, at most 1024 threads");
 constexpr int kMerkleThreads = 256;              // 8 warps a CTA
 constexpr int kMerkleSpan = 2 * kMerkleThreads;  // input nodes a CTA reduces
 constexpr int kMerkleCap = 9;                    // log2(kMerkleSpan): levels a launch
@@ -318,5 +327,9 @@ int tt_sha256_merkle_launch(const void* words, void* out, int64_t nodes, int lev
 
 // The most levels one tt_sha256_merkle_launch reduces.
 int tt_sha256_merkle_cap(void) { return kMerkleCap; }
+
+// Threads (rows) a block of the rows kernel: the TT_SHA256_ROW_THREADS it
+// was built with.
+int tt_sha256_row_threads(void) { return kRowThreads; }
 
 }  // extern "C"

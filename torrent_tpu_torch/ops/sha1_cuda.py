@@ -19,6 +19,12 @@ Build: CUDA C++ for ``sm_90a`` with a plain C interface, compiled by
 Dispatch: :func:`sha1_pieces_cuda` takes a CUDA tensor to the kernel and
 a CPU tensor to the plain version. There is no path from a failed build
 or launch to the plain version.
+
+Variants: the launch design's knobs (:data:`KNOBS`) are compile-time
+parameters of the source. :func:`load_variant` builds the kernel with
+other values into ``build/torrent_tpu_torch/variants/`` and returns its
+own handle and launch (``tools/tune_sha1.py`` sweeps them); the module's
+library, :func:`sha1_pieces_cuda` and its counter never see a variant.
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ import ctypes
 
 import torch
 
-from torrent_tpu_torch.native.build import BUILD_DIR, PACKAGE_DIR, build_cuda
+from torrent_tpu_torch.native import build as native_build
+from torrent_tpu_torch.native.build import BUILD_DIR, PACKAGE_DIR, Variant, build_cuda
 from torrent_tpu_torch.ops.sha1_torch import check_batch, sha1_pieces_torch
 from torrent_tpu_torch.utils.device import resolve_device
 from torrent_tpu_torch.utils.locks import named_lock
@@ -47,6 +54,16 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # H100 SXM HBM3 rate (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
 
+# The launch design's compile-time knobs (csrc/sha1.cu): keyword → (macro,
+# production value, short label of a variant's file name).
+KNOBS = {
+    "wk_stages": ("TT_SHA1_WK_STAGES", 4, "wk"),
+    "raw_stages": ("TT_SHA1_RAW_STAGES", 3, "raw"),
+    "schedule_warps": ("TT_SHA1_SCHEDULE_WARPS", 2, "sched"),
+}
+# Hopper's shared memory per block (csrc/sha1.cu's static_assert).
+SMEM_LIMIT = 232448
+
 _lib = None
 _lib_lock = named_lock("ops.sha1_cuda._lib_lock")
 
@@ -57,25 +74,29 @@ def build(force: bool = False) -> str:
     return build_cuda(SOURCE, LIBRARY, force)
 
 
+def _bind(path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    lib.tt_sha1_launch.restype = ctypes.c_int
+    lib.tt_sha1_launch.argtypes = [
+        ctypes.c_void_p,  # data
+        ctypes.c_int64,  # row_bytes
+        ctypes.c_void_p,  # nblocks
+        ctypes.c_void_p,  # out
+        ctypes.c_int64,  # batch
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    for fn in (lib.tt_sha1_smem_bytes, lib.tt_sha1_ctas_per_sm):
+        fn.restype = ctypes.c_int
+        fn.argtypes = []
+    return lib
+
+
 def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
             build()
-            lib = ctypes.CDLL(str(LIBRARY))
-            lib.tt_sha1_launch.restype = ctypes.c_int
-            lib.tt_sha1_launch.argtypes = [
-                ctypes.c_void_p,  # data
-                ctypes.c_int64,  # row_bytes
-                ctypes.c_void_p,  # nblocks
-                ctypes.c_void_p,  # out
-                ctypes.c_int64,  # batch
-                ctypes.c_void_p,  # cudaStream_t
-            ]
-            for fn in (lib.tt_sha1_smem_bytes, lib.tt_sha1_ctas_per_sm):
-                fn.restype = ctypes.c_int
-                fn.argtypes = []
-            _lib = lib
+            _lib = _bind(LIBRARY)
     return _lib
 
 
@@ -94,15 +115,9 @@ def ctas_per_sm() -> int:
     return n
 
 
-def sha1_pieces_cuda(data: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
-    """Batched SHA-1: ``(u8[B, P] | int32[B, P/4], int32[B]) → int32[B, 5]``.
-
-    A CUDA batch launches the kernel on the current stream, without
-    synchronising; a CPU batch runs the plain version. The result holds
-    the uint32 state words' bits (``sha1_torch.words_to_numpy``).
-    """
-    if data.device.type == "cpu":
-        return sha1_pieces_torch(data, nblocks)
+def _launch(load, data: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
+    """Check a CUDA batch and launch the kernel of ``load()``'s library on
+    the current stream; an empty batch launches nothing."""
     if data.device.type != "cuda":
         raise ValueError(f"unsupported device {data.device}")
     row_bytes = check_batch(data, nblocks)
@@ -110,7 +125,7 @@ def sha1_pieces_cuda(data: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
         raise ValueError("data and nblocks must be contiguous")
     if data.data_ptr() % 16:
         raise ValueError("data must be 16-byte aligned for the kernel's vector loads")
-    lib = _load()
+    lib = load()
     batch = data.shape[0]
     out = torch.empty((batch, 5), dtype=torch.int32, device=data.device)
     if batch == 0:
@@ -122,7 +137,21 @@ def sha1_pieces_cuda(data: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
         )
     if rc != 0:
         raise RuntimeError(f"sha1 kernel launch (or its shared-memory set-up) failed: cudaError {rc}")
-    sha1_pieces_cuda.launches += 1
+    return out
+
+
+def sha1_pieces_cuda(data: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
+    """Batched SHA-1: ``(u8[B, P] | int32[B, P/4], int32[B]) → int32[B, 5]``.
+
+    A CUDA batch launches the kernel on the current stream, without
+    synchronising; a CPU batch runs the plain version. The result holds
+    the uint32 state words' bits (``sha1_torch.words_to_numpy``).
+    """
+    if data.device.type == "cpu":
+        return sha1_pieces_torch(data, nblocks)
+    out = _launch(_load, data, nblocks)
+    if data.shape[0]:
+        sha1_pieces_cuda.launches += 1
     return out
 
 
@@ -142,3 +171,53 @@ def make_sha1_fn(device=None):
     if dev.type == "cuda":
         _load()
     return sha1_pieces_cuda
+
+
+# ------------------------------------------------------------- variants
+
+
+def variant_smem_bytes(wk_stages: int, raw_stages: int, schedule_warps: int) -> int:
+    """Dynamic shared memory of one CTA of a variant, as csrc/sha1.cu
+    computes ``kSmemBytes``: the W+K ring (80 words of 32 pieces a
+    stage), each schedule warp's raw ring (64 bytes of 32 pieces a stage),
+    two mbarriers a W+K stage and 32 block counts."""
+    return wk_stages * 20 * 32 * 16 + schedule_warps * raw_stages * 32 * 64 + 2 * wk_stages * 8 + 32 * 4
+
+
+def check_knobs(**knobs) -> dict:
+    """The full knob set (production values where not given), or
+    ValueError for a set that csrc/sha1.cu's static_asserts would refuse:
+    an unknown knob, a ring without a stage, a W+K stage with two
+    producers (``wk_stages % schedule_warps``), or shared memory over
+    Hopper's 232,448 bytes a block. Nothing is compiled."""
+    full = native_build.full_knobs("sha1", KNOBS, knobs)
+    if min(full.values()) < 1:
+        raise ValueError(f"sha1 knobs must be >= 1: {full}")
+    if full["wk_stages"] % full["schedule_warps"]:
+        raise ValueError(
+            f"wk_stages {full['wk_stages']} is not a multiple of schedule_warps "
+            f"{full['schedule_warps']}: a W+K stage would have two producers"
+        )
+    smem = variant_smem_bytes(**full)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"sha1 knobs {full} need {smem} bytes of shared memory, over {SMEM_LIMIT}")
+    return full
+
+
+def _probe(lib, knobs: dict) -> str | None:
+    smem = lib.tt_sha1_smem_bytes()
+    return None if smem == variant_smem_bytes(**knobs) else f"{smem} bytes of shared memory"
+
+
+def load_variant(force: bool = False, **knobs) -> Variant:
+    """Build (if missing or stale, or ``force``) and load the kernel with
+    ``knobs`` (see :func:`check_knobs`; the rest keep their production
+    values). The variant has its own library under
+    ``build/torrent_tpu_torch/variants/``, its own ctypes handle and its
+    own launch (same contract as :func:`sha1_pieces_cuda` on a CUDA
+    batch); it never replaces the module's library and never counts in
+    ``sha1_pieces_cuda.launches``. A failed build raises."""
+    return native_build.load_variant(
+        SOURCE, LIBRARY.stem, KNOBS, check_knobs(**knobs),
+        bind=_bind, launch=_launch, probe=_probe, force=force,
+    )

@@ -22,6 +22,12 @@ raises.
 Dispatch: a CUDA tensor goes to the kernel and a CPU tensor to the plain
 version. There is no path from a failed build or launch to the plain
 version. Each wrapper counts its own launches in ``.launches``.
+
+Variants: the rows kernel's block (:data:`KNOBS`) is a compile-time
+parameter of the source. :func:`load_variant` builds the library with
+another value into ``build/torrent_tpu_torch/variants/`` and returns its
+own handle and rows launch (``tools/tune_sha256.py`` sweeps them); the
+module's library, wrappers and counters never see a variant.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ import ctypes
 
 import torch
 
-from torrent_tpu_torch.native.build import BUILD_DIR, PACKAGE_DIR, build_cuda
+from torrent_tpu_torch.native import build as native_build
+from torrent_tpu_torch.native.build import BUILD_DIR, PACKAGE_DIR, Variant, build_cuda
 from torrent_tpu_torch.ops.sha1_torch import check_batch
 from torrent_tpu_torch.ops.sha256_torch import (
     check_merkle,
@@ -64,6 +71,10 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # H100 SXM HBM3 rate (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
 
+# The rows kernel's compile-time knob (csrc/sha256.cu): keyword → (macro,
+# production value, short label of a variant's file name).
+KNOBS = {"row_threads": ("TT_SHA256_ROW_THREADS", 32, "rows")}
+
 _lib = None
 _lib_lock = named_lock("ops.sha256_cuda._lib_lock")
 
@@ -75,35 +86,41 @@ def build(force: bool = False) -> str:
     return build_cuda(SOURCE, LIBRARY, force)
 
 
+def _bind(path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    lib.tt_sha256_launch.restype = ctypes.c_int
+    lib.tt_sha256_launch.argtypes = [
+        ctypes.c_void_p,  # data
+        ctypes.c_int64,  # row_bytes
+        ctypes.c_void_p,  # nblocks
+        ctypes.c_void_p,  # out
+        ctypes.c_int64,  # batch
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.tt_sha256_merkle_launch.restype = ctypes.c_int
+    lib.tt_sha256_merkle_launch.argtypes = [
+        ctypes.c_void_p,  # words
+        ctypes.c_void_p,  # out
+        ctypes.c_int64,  # nodes
+        ctypes.c_int,  # levels
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.tt_sha256_merkle_cap.restype = ctypes.c_int
+    lib.tt_sha256_merkle_cap.argtypes = []
+    lib.tt_sha256_row_threads.restype = ctypes.c_int
+    lib.tt_sha256_row_threads.argtypes = []
+    cap = lib.tt_sha256_merkle_cap()
+    if cap != MERKLE_CAP:
+        raise RuntimeError(f"{path} reduces {cap} levels a launch, MERKLE_CAP is {MERKLE_CAP}")
+    return lib
+
+
 def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
             build()
-            lib = ctypes.CDLL(str(LIBRARY))
-            lib.tt_sha256_launch.restype = ctypes.c_int
-            lib.tt_sha256_launch.argtypes = [
-                ctypes.c_void_p,  # data
-                ctypes.c_int64,  # row_bytes
-                ctypes.c_void_p,  # nblocks
-                ctypes.c_void_p,  # out
-                ctypes.c_int64,  # batch
-                ctypes.c_void_p,  # cudaStream_t
-            ]
-            lib.tt_sha256_merkle_launch.restype = ctypes.c_int
-            lib.tt_sha256_merkle_launch.argtypes = [
-                ctypes.c_void_p,  # words
-                ctypes.c_void_p,  # out
-                ctypes.c_int64,  # nodes
-                ctypes.c_int,  # levels
-                ctypes.c_void_p,  # cudaStream_t
-            ]
-            lib.tt_sha256_merkle_cap.restype = ctypes.c_int
-            lib.tt_sha256_merkle_cap.argtypes = []
-            cap = lib.tt_sha256_merkle_cap()
-            if cap != MERKLE_CAP:
-                raise RuntimeError(f"{LIBRARY} reduces {cap} levels a launch, MERKLE_CAP is {MERKLE_CAP}")
-            _lib = lib
+            _lib = _bind(LIBRARY)
     return _lib
 
 
@@ -116,20 +133,14 @@ def _check_cuda(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} must be 16-byte aligned for the kernel's vector loads")
 
 
-def sha256_pieces_cuda(data: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
-    """Batched SHA-256: ``(u8[B, P] | int32[B, P/4], int32[B]) → int32[B, 8]``.
-
-    A CUDA batch launches the kernel on the current stream, without
-    synchronising; a CPU batch runs the plain version. The result holds
-    the uint32 state words' bits (``sha1_torch.words_to_numpy``).
-    """
-    if data.device.type == "cpu":
-        return sha256_pieces_torch(data, nblocks)
+def _launch_rows(load, data: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
+    """Check a CUDA batch and launch the rows kernel of ``load()``'s
+    library on the current stream; an empty batch launches nothing."""
     row_bytes = check_batch(data, nblocks)
     _check_cuda(data, "data")
     if not nblocks.is_contiguous():
         raise ValueError("nblocks must be contiguous")
-    lib = _load()
+    lib = load()
     batch = data.shape[0]
     out = torch.empty((batch, 8), dtype=torch.int32, device=data.device)
     if batch == 0:
@@ -141,7 +152,21 @@ def sha256_pieces_cuda(data: torch.Tensor, nblocks: torch.Tensor) -> torch.Tenso
         )
     if rc != 0:
         raise RuntimeError(f"sha256 kernel launch failed: cudaError {rc}")
-    sha256_pieces_cuda.launches += 1
+    return out
+
+
+def sha256_pieces_cuda(data: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
+    """Batched SHA-256: ``(u8[B, P] | int32[B, P/4], int32[B]) → int32[B, 8]``.
+
+    A CUDA batch launches the kernel on the current stream, without
+    synchronising; a CPU batch runs the plain version. The result holds
+    the uint32 state words' bits (``sha1_torch.words_to_numpy``).
+    """
+    if data.device.type == "cpu":
+        return sha256_pieces_torch(data, nblocks)
+    out = _launch_rows(_load, data, nblocks)
+    if data.shape[0]:
+        sha256_pieces_cuda.launches += 1
     return out
 
 
@@ -229,3 +254,36 @@ def make_sha256_fn(device=None):
     if dev.type == "cuda":
         _load()
     return sha256_pieces_cuda
+
+
+# ------------------------------------------------------------- variants
+
+
+def check_knobs(**knobs) -> dict:
+    """The full knob set (production values where not given), or
+    ValueError for a set that csrc/sha256.cu's static_assert would refuse:
+    an unknown knob, or a block that is not whole warps from 32 to 1024
+    threads. Nothing is compiled."""
+    full = native_build.full_knobs("sha256", KNOBS, knobs)
+    t = full["row_threads"]
+    if t % 32 or not 32 <= t <= 1024:
+        raise ValueError(f"row_threads {t} is not a whole number of warps from 32 to 1024")
+    return full
+
+
+def _probe(lib, knobs: dict) -> str | None:
+    threads = lib.tt_sha256_row_threads()
+    return None if threads == knobs["row_threads"] else f"{threads} row threads"
+
+
+def load_variant(force: bool = False, **knobs) -> Variant:
+    """Build (if missing or stale, or ``force``) and load the library with
+    ``knobs`` (see :func:`check_knobs`). The variant has its own library
+    under ``build/torrent_tpu_torch/variants/``, its own ctypes handle and
+    its own rows launch (same contract as :func:`sha256_pieces_cuda` on a
+    CUDA batch); it never replaces the module's library and never counts
+    in the module's launch counters. A failed build raises."""
+    return native_build.load_variant(
+        SOURCE, LIBRARY.stem, KNOBS, check_knobs(**knobs),
+        bind=_bind, launch=_launch_rows, probe=_probe, force=force,
+    )

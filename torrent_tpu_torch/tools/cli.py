@@ -26,9 +26,10 @@ Every subcommand that hashes takes ``--hasher gpu|cpu`` (default
 a host without CUDA fails with an error and gives no verdict) and
 ``--device`` (``cpu`` runs the plain PyTorch versions of the kernels).
 ``--hasher cpu`` is hashlib. ``fabric-verify`` is
-``tools/fabric_verify.py``'s command, with its flags. ``bench`` and
-``lint`` keep their flags but exit 2 with one line until
-``tools/bench_cli.py`` and ``analysis/`` are ported.
+``tools/fabric_verify.py``'s command, with its flags. ``bench`` runs
+``tools/bench_cli.py``'s rungs (its device rungs the port's
+``tools/device_bench.py``), and ``lint`` keeps its flags but exits 2
+with one line until ``analysis/`` is ported.
 
 ``download`` accepts either a ``.torrent`` file or a ``magnet:?...`` URI
 (BEP 9 metadata fetch). Also runnable as ``python -m torrent_tpu_torch``.
@@ -1168,13 +1169,38 @@ def _cmd_serve(args) -> int:
 
 
 def _cmd_bench(args) -> int:
-    """The unified bench rungs: ``tools/bench_cli.py`` and its device
-    bench are not ported yet, so the command keeps its flags and says so."""
-    print(
-        "error: bench needs torrent_tpu_torch.tools.bench_cli, which is not ported yet",
-        file=sys.stderr,
-    )
-    return 2
+    from torrent_tpu_torch.tools.bench_cli import main as bench_main
+
+    argv: list[str] = []
+    if args.rung:
+        argv.append(args.rung)
+    if args.smoke:
+        argv.append("--smoke")
+    argv += ["--mb", str(args.mb), "--piece-kb", str(args.piece_kb),
+             "--batch-target", str(args.batch_target),
+             "--hasher", args.hasher,
+             "--clients", str(args.clients), "--swarms", str(args.swarms),
+             "--per-client", str(args.per_client),
+             "--shards", str(args.shards), "--numwant", str(args.numwant),
+             "--leechers", str(args.leechers),
+             "--tolerance", str(args.tolerance)]
+    if args.device is not None:
+        argv += ["--device", args.device]
+    if args.timeout is not None:
+        argv += ["--timeout", str(args.timeout)]
+    if args.out:
+        argv += ["--out", args.out]
+    if args.record:
+        argv += ["--record", args.record]
+    if args.trajectory:
+        argv += ["--trajectory", args.trajectory]
+    if args.compare:
+        argv.append("--compare")
+    if args.report_only:
+        argv.append("--report-only")
+    if args.bank:
+        argv.append("--bank")
+    return bench_main(argv)
 
 
 def _cmd_edit(args) -> int:
@@ -2040,7 +2066,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="gate the record against the banked trajectory "
                     "(unarmed when no like-for-like record is banked)")
     sp.add_argument("--trajectory", default=None, metavar="FILE",
-                    help="trajectory file (default BENCH_trajectory.json)")
+                    help="trajectory file (default BENCH_trajectory_cuda.json)")
     sp.add_argument("--tolerance", type=float, default=0.10,
                     help="allowed fractional regression (default %(default)s)")
     sp.add_argument("--report-only", action="store_true",
