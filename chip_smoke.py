@@ -357,9 +357,28 @@ Phases (any failure exits non-zero, and no phase hides an error):
    name and power limit: each stage's rc and wall, the examples' walls
    and launches, and phase 16's wall. The gate's pytest stages (2-3)
    are not run here: they are ``python -m torrent_tpu_torch.tools.ci``'s.
+17. The v1 hash plane on a grid of devices (``parallel/mesh.py``): every
+   card when there are two or more, else ``cuda:0`` named twice (two
+   entries on the one card, each with its own buffers and streams); the
+   phase prints which. The launch counts are set to 0 just before each
+   sub-phase and read just after. 17a: phase 4's 2 GiB recheck (8192 x
+   256 KiB, batch 4096) through ``verify_pieces(hasher="gpu",
+   mesh=grid)``: all True, then one flipped byte (piece 7777) flags
+   exactly that piece, equal to the one-entry path's and hashlib's
+   bitfields; each entry launches the SHA-1 kernel once a batch. 17b:
+   ``make_torrent`` of phase 4's six files on the default grid (the
+   process's cards made the grid's entries) gives hashlib's ``.torrent``
+   bytes. 17c: a scheduler whose SHA-1 lanes span the grid sweeps the
+   first 256 MiB of the 2 GiB file: hashlib's bitfield, no CPU-fallback
+   launch, each scheduler launch one kernel launch an entry. 17d:
+   ``entry.dryrun_multichip(4)`` on the card. 17e: two gloo ranks of two
+   entries each on their card (a (2, 2) grid): phase 8's v1 recheck, clean
+   and flipped, hashlib's bitfields on both. Printed beside the card's
+   name and power limit (``time: mesh`` lines): each sub-phase's wall
+   beside the one-entry path's and hashlib's, and phase 17's wall.
 
 The line before the last is the kernels' JSON record (its ``launches``
-are phases 4 and 5's; phases 7 to 16 print their own); the last line is
+are phases 4 and 5's; phases 7 to 17 print their own); the last line is
 ``{"ok": true, "device": {...}}``. The page cache holds the payload when
 it is rechecked (it was just written), so the end-to-end rates measure
 reads from memory, padding, copies and the kernels, not a disk.
@@ -761,6 +780,7 @@ def rank_main(argv) -> None:
         ap.add_argument(flag, type=int, required=True)
     for flag in ("--dist-init", "--dist-dir"):
         ap.add_argument(flag, required=True)
+    ap.add_argument("--dist-mode", choices=("dist", "mesh"), default="dist")
     a = ap.parse_args(argv)
     sys.path.insert(0, REPO)
 
@@ -821,6 +841,27 @@ def rank_main(argv) -> None:
     try:
         with open(spec["v1_torrent"], "rb") as f:
             info = parse_metainfo(f.read()).info
+        victim, off = spec["victim"], spec["victim_offset"]
+        if a.dist_mode == "mesh":
+            # phase 17e: this rank's MESH_RANK_ENTRIES entries on its card,
+            # a (ranks, entries) grid over the group
+            from torrent_tpu_torch.parallel.mesh import spanning_grid
+
+            entries = [torch.device("cuda", torch.cuda.current_device())] * MESH_RANK_ENTRIES
+            out["grid"] = spanning_grid(devices=entries).shape
+
+            def grid_v1():
+                return verify_pieces(Storage(FsStorage(tmp), info), info, hasher="gpu", batch_size=BATCH, devices=entries)
+
+            def grid_direct():
+                return D.verify_storage_distributed(Storage(FsStorage(tmp), info), info, batch_size=BATCH, devices=entries)
+
+            bf = timed("grid clean", grid_v1)
+            out["sub"]["grid clean"]["false"] = false_rows(bf)
+            bf, n_valid = flipped(victim, off, lambda: timed("grid flipped", grid_direct))
+            out["sub"]["grid flipped"].update(false=false_rows(bf), n_valid=int(n_valid))
+            write_result(a.dist_dir, rank, out)
+            return
 
         def v1():
             return verify_pieces(Storage(FsStorage(tmp), info), info, hasher="gpu", batch_size=BATCH)
@@ -830,7 +871,6 @@ def rank_main(argv) -> None:
 
         bf = timed("v1 clean", v1)
         out["sub"]["v1 clean"]["false"] = false_rows(bf)
-        victim, off = spec["victim"], spec["victim_offset"]
         bf = flipped(victim, off, lambda: timed("v1 flipped", v1))
         out["sub"]["v1 flipped"]["false"] = false_rows(bf)
         bf, n_valid = flipped(victim, off, lambda: timed("v1 flipped direct", v1_direct))
@@ -883,23 +923,29 @@ def rank_main(argv) -> None:
         check(not leaked, f"rank {rank} imported {leaked}")
     finally:
         D.shutdown()
-    path = os.path.join(a.dist_dir, f"result_{rank}.json")
+    write_result(a.dist_dir, rank, out)
+
+
+def write_result(d: str, rank: int, out: dict) -> None:
+    """A rank's ``result_<rank>.json``, written whole or not at all."""
+    path = os.path.join(d, f"result_{rank}.json")
     with open(path + ".tmp", "w") as f:
         json.dump(out, f)
     os.replace(path + ".tmp", path)
 
 
-def run_ranks(d: str) -> list:
-    """Start phase 8's ranks as fresh interpreters (never a fork of this
-    CUDA process), wait for all, and kill every rank if one fails: its
-    peers would wait in a collective until the timeout."""
+def run_ranks(d: str, mode: str = "dist") -> list:
+    """Start phase 8's ranks (or with ``mode="mesh"`` phase 17e's) as
+    fresh interpreters (never a fork of this CUDA process), wait for all,
+    and kill every rank if one fails: its peers would wait in a
+    collective until the timeout."""
     init = f"tcp://127.0.0.1:{free_port()}"
     procs, logs = [], []
     for r in range(DIST_RANKS):
         logs.append(open(os.path.join(d, f"rank{r}.log"), "w"))
         procs.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--dist-rank", str(r), "--dist-world", str(DIST_RANKS),
-             "--dist-init", init, "--dist-dir", d],
+             "--dist-init", init, "--dist-dir", d, "--dist-mode", mode],
             stdout=logs[-1], stderr=subprocess.STDOUT,
         ))
     try:
@@ -920,7 +966,7 @@ def run_ranks(d: str) -> list:
         for r in range(DIST_RANKS):
             with open(os.path.join(d, f"rank{r}.log")) as f:
                 log(f"  rank {r} (rc {rcs[r]}) log tail:\n{f.read()[-4000:]}")
-        raise SmokeFailure(f"phase 8: ranks exited {rcs}")
+        raise SmokeFailure(f"{'phase 17e' if mode == 'mesh' else 'phase 8'}: ranks exited {rcs}")
     results = []
     for r in range(DIST_RANKS):
         with open(os.path.join(d, f"result_{r}.json")) as f:
@@ -3313,6 +3359,190 @@ def ci_phase(tmp: str, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 17
+
+MESH_FLIP_PIECE = 7777  # 17a's flipped piece of phase 4's 2 GiB file
+MESH_FLIP_OFF = MESH_FLIP_PIECE * PIECE + 4_321
+MESH_SCHED_PIECES = 1024  # 17c: the first 256 MiB of phase 4's 2 GiB file
+MESH_RANK_ENTRIES = 2  # 17e: grid entries a rank, all on its card
+
+
+def mesh_entries() -> tuple:
+    """Phase 17's grid entries: every card when there are two or more,
+    else the one card named twice (two entries, each with its own
+    buffers and streams); and which of the two it is."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return [torch.device("cuda", i) for i in range(n)], f"every card ({n})"
+    return [torch.device("cuda", 0)] * 2, "cuda:0 named twice (one card)"
+
+
+def mesh_phase(tmp: str, single: str, info, multi_root: str, multi_info, card: str) -> dict:
+    """Phase 17: the v1 hash plane on a grid (see the module docstring).
+    Returns each sub-phase's launches (17e: each rank's)."""
+    import asyncio
+    import contextlib
+
+    from torrent_tpu_torch.codec.metainfo import InfoDict
+    from torrent_tpu_torch.entry import dryrun_multichip
+    from torrent_tpu_torch.ops import sha1_cuda, sha256_cuda
+    from torrent_tpu_torch.parallel import distributed as D
+    from torrent_tpu_torch.parallel.mesh import make_mesh
+    from torrent_tpu_torch.parallel.verify import verify_pieces, verify_pieces_sched
+    from torrent_tpu_torch.sched import HashPlaneScheduler, SchedulerConfig
+    from torrent_tpu_torch.storage.storage import FsStorage, Storage
+    from torrent_tpu_torch.tools.make_torrent import make_torrent
+
+    kernels = {
+        "sha1_cuda": sha1_cuda.sha1_pieces_cuda,
+        "sha256_cuda": sha256_cuda.sha256_pieces_cuda,
+        "sha256_merkle_cuda": sha256_cuda.sha256_merkle_cuda,
+    }
+    t_phase = time.perf_counter()
+    entries, which = mesh_entries()
+    grid = make_mesh(entries, n_hosts=1)
+    n_entries = grid.size
+    log(f"phase 17: grid {grid.shape}: {[str(d) for d in grid.entries]}, {which}")
+    launches: dict = {}
+
+    def run(name, fn):
+        """``fn()`` with every count at 0 just before it, read just after."""
+        for k in kernels.values():
+            k.launches = 0
+        t = time.perf_counter()
+        value = fn()
+        wall = time.perf_counter() - t
+        launches[name] = {n: k.launches for n, k in kernels.items()}
+        return value, wall
+
+    @contextlib.contextmanager
+    def process_cards(devs):
+        """The process's cards are ``devs``: every construction site's
+        default grid (no device, devices or mesh) is then the smoke's."""
+        real = D.local_devices
+        D.local_devices = lambda: list(devs)
+        try:
+            yield
+        finally:
+            D.local_devices = real
+
+    def storage(i):
+        return Storage(FsStorage(tmp), i)
+
+    # -- 17a: phase 4's 2 GiB recheck through verify_pieces(mesh=grid)
+    n_batches = -(-info.num_pieces // BATCH)
+    bf, grid_s = run("17a clean", lambda: verify_pieces(storage(info), info, hasher="gpu", batch_size=BATCH, mesh=grid))
+    check(bf.all(), f"phase 17a: clean grid recheck flags {false_rows(bf)}")
+    flip_byte(single, MESH_FLIP_OFF)
+    try:
+        bf, grid_again_s = run(
+            "17a flipped", lambda: verify_pieces(storage(info), info, hasher="gpu", batch_size=BATCH, mesh=grid)
+        )
+        one, one_s = run("17a one entry", lambda: verify_pieces(storage(info), info, hasher="gpu", batch_size=BATCH, device=entries[0]))
+        t = time.perf_counter()
+        hashed = verify_pieces(storage(info), info, hasher="cpu")
+        hashlib_s = time.perf_counter() - t
+    finally:
+        flip_byte(single, MESH_FLIP_OFF)
+    check(false_rows(bf) == [MESH_FLIP_PIECE], f"phase 17a: flipped grid recheck flags {false_rows(bf)}")
+    check((bf == one).all() and (bf == hashed).all(), "phase 17a: the grid's bitfield differs from one entry's or hashlib's")
+    for name in ("17a clean", "17a flipped"):
+        got = launches[name]["sha1_cuda"]
+        check(got == n_entries * n_batches, f"phase 17a: {name}: {got} SHA-1 launches, not {n_entries} entries x {n_batches} batches")
+    check(launches["17a one entry"]["sha1_cuda"] == n_batches, f"phase 17a: one entry launched {launches['17a one entry']}")
+    log(
+        f"phase 17a: {info.num_pieces} x 256 KiB at batch {BATCH} on the grid: all True, the flipped byte flags "
+        f"exactly piece {MESH_FLIP_PIECE}, equal to one entry's and hashlib's bitfields; "
+        f"{launches['17a flipped']['sha1_cuda']} SHA-1 launches ({n_entries} entries x {n_batches} batches)"
+    )
+    log(
+        f"time: mesh 17a recheck 2 GiB grid of {n_entries} s={grid_s:.3f} (flipped s={grid_again_s:.3f}) "
+        f"one entry s={one_s:.3f} hashlib s={hashlib_s:.3f} {card}"
+    )
+
+    # -- 17b: make_torrent of phase 4's six files on the default grid
+    clock = time.time
+    try:
+        time.time = lambda: 1_760_000_000.0  # "creation date": one clock for both
+        with process_cards(entries):
+            gpu_bytes, author_s = run(
+                "17b make_torrent", lambda: make_torrent(multi_root, "http://localhost/announce", piece_length=PIECE, hasher="gpu")
+            )
+        t = time.perf_counter()
+        cpu_bytes = make_torrent(multi_root, "http://localhost/announce", piece_length=PIECE, hasher="cpu")
+        author_cpu_s = time.perf_counter() - t
+    finally:
+        time.time = clock
+    check(gpu_bytes == cpu_bytes, "phase 17b: make_torrent on the grid differs from hashlib's .torrent bytes")
+    author_batches = -(-multi_info.num_pieces // 256)
+    got = launches["17b make_torrent"]["sha1_cuda"]
+    check(got == n_entries * author_batches, f"phase 17b: {got} SHA-1 launches, not {n_entries} x {author_batches}")
+    log(f"phase 17b: make_torrent of the six files ({multi_info.num_pieces} pieces) on the default grid == hashlib's bytes, {got} SHA-1 launches")
+    log(f"time: mesh 17b make_torrent 184 MB grid s={author_s:.3f} hashlib s={author_cpu_s:.3f} {card}")
+
+    # -- 17c: a scheduler whose SHA-1 lanes span the grid, 256 MiB
+    head = InfoDict(
+        name=info.name, piece_length=PIECE, pieces=info.pieces[:MESH_SCHED_PIECES],
+        length=MESH_SCHED_PIECES * PIECE,
+    )
+
+    async def sweep():
+        sched = await HashPlaneScheduler(SchedulerConfig(batch_target=1024), hasher="gpu", mesh=grid).start()
+        try:
+            return await verify_pieces_sched(storage(head), head, sched), sched.metrics_snapshot()
+        finally:
+            await sched.close()
+
+    (bf, snap), sched_s = run("17c scheduler", lambda: asyncio.run(sweep()))
+    t = time.perf_counter()
+    hashed = verify_pieces(storage(head), head, hasher="cpu")
+    sched_hashlib_s = time.perf_counter() - t
+    check((bf == hashed).all() and bf.all(), f"phase 17c: the grid scheduler flags {false_rows(bf)}")
+    check(snap["cpu_fallback_launches"] == 0 and snap["launch_failures"] == 0, f"phase 17c: {snap['cpu_fallback_launches']} cpu fallback, {snap['launch_failures']} failed launches")
+    check(snap["staging"]["outstanding"] == 0, "phase 17c: ingest slabs outstanding")
+    got = launches["17c scheduler"]["sha1_cuda"]
+    check(got == n_entries * snap["launches"], f"phase 17c: {got} SHA-1 launches for {snap['launches']} scheduler launches")
+    log(f"phase 17c: scheduler on the grid, {MESH_SCHED_PIECES} pieces: hashlib's bitfield, {snap['launches']} launches of {n_entries} entries")
+    log(f"time: mesh 17c scheduler 256 MiB grid s={sched_s:.3f} hashlib s={sched_hashlib_s:.3f} {card}")
+
+    # -- 17d: the grid dry run on the card
+    out, dry_s = run("17d dryrun_multichip", lambda: dryrun_multichip(4))
+    got = launches["17d dryrun_multichip"]
+    check(out["valid"] == 7 and out["mesh"] == {"hosts": 2, "dp": 2}, f"phase 17d: dry run {out['mesh']} valid {out['valid']}")
+    check(got == {"sha1_cuda": 8, "sha256_cuda": 4, "sha256_merkle_cuda": 5}, f"phase 17d: dry run launched {got}")
+    log(f"time: mesh 17d dryrun_multichip(4) s={dry_s:.3f} {card}")
+
+    # -- 17e: two gloo ranks of MESH_RANK_ENTRIES entries each, (2, 2)
+    d = os.path.join(tmp, "dist_mesh")
+    os.makedirs(d)
+    shutil.copy(os.path.join(tmp, "dist", "spec.json"), os.path.join(d, "spec.json"))
+    t = time.perf_counter()
+    ranks = run_ranks(d, mode="mesh")
+    ranks_s = time.perf_counter() - t
+    for r in ranks:
+        sub = r["sub"]
+        check(r["grid"] == {"hosts": DIST_RANKS, "dp": MESH_RANK_ENTRIES}, f"phase 17e rank {r['rank']}: grid {r['grid']}")
+        check(sub["grid clean"]["false"] == [], f"phase 17e rank {r['rank']}: clean flags {sub['grid clean']['false']}")
+        check(sub["grid flipped"]["false"] == [5000], f"phase 17e rank {r['rank']}: flipped flags {sub['grid flipped']['false']}")
+        check(sub["grid flipped"]["n_valid"] == info.num_pieces - 1, f"phase 17e rank {r['rank']}: n_valid {sub['grid flipped']['n_valid']}")
+        for name in ("grid clean", "grid flipped"):
+            got = sub[name]["launches"]["sha1_cuda"]
+            check(got == MESH_RANK_ENTRIES * n_batches, f"phase 17e rank {r['rank']} {name}: {got} SHA-1 launches")
+        launches[f"17e rank {r['rank']}"] = {n: sub[n]["launches"] for n in ("grid clean", "grid flipped")}
+    log(
+        f"phase 17e: {DIST_RANKS} gloo ranks x {MESH_RANK_ENTRIES} entries on {[r['device'] for r in ranks]}: "
+        f"hashlib's bitfields, n_valid {info.num_pieces - 1} after the flip"
+    )
+    log(
+        f"time: mesh 17e ranks s={ranks_s:.3f} (start-up included); per rank clean / flipped "
+        f"{[(round(r['sub']['grid clean']['wall_s'], 3), round(r['sub']['grid flipped']['wall_s'], 3)) for r in ranks]} {card}"
+    )
+    log(f"time: mesh phase 17 wall s={time.perf_counter() - t_phase:.3f} {card}")
+    return launches
+
+
 def main() -> dict:
     import torch
 
@@ -3863,6 +4093,9 @@ def main() -> dict:
 
         # ----------------------------------------------------------- 16
         ci_launches = ci_phase(tmp, card)
+
+        # ----------------------------------------------------------- 17
+        mesh_launches = mesh_phase(tmp, single, infos["single"], multi_root, infos["multi"], card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4036,6 +4269,7 @@ def main() -> dict:
     log(f"phase 14: bench path launches {bench_out['launches']}")
     log(f"phase 15: sanitized path launches {analysis_launches}")
     log(f"phase 16: examples' launches {ci_launches}")
+    log(f"phase 17: grid path launches (17e: per rank) {mesh_launches}")
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "torrent_tpu"))
     check(not leaked, f"the port imported {leaked}")
     log(f"time: chip_smoke wall s={time.perf_counter() - t_smoke:.3f} (the kernels' builds included) {card}")

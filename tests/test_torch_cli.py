@@ -1056,7 +1056,7 @@ ADDED = {
     # tools/fabric_verify.py: a torch.distributed rendezvous
     "fabric-verify": {"--device", "--init-method", "--backend"},
 }
-REMOVED = {"fabric-verify": {"--coordinator", "--cpu-devices"}}
+REMOVED = {"fabric-verify": {"--coordinator"}}
 
 
 def _subcommands(parser) -> dict:

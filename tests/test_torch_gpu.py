@@ -473,6 +473,72 @@ def test_sched_zero_copy_recheck_on_card(cuda, tmp_path):
     _sched_run(go())
 
 
+def test_grid_of_two_entries_on_one_card(cuda):
+    """A grid that names the card twice (``parallel/mesh.py``): each
+    entry launches the kernel on its own block of every batch, on its
+    own streams; the bitfield, digests and count equal one entry's and
+    hashlib's."""
+    from torrent_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(15)
+    length, plen = 37 * 16384 + 1000, 16384
+    payload = rng.bytes(length)
+    pieces = tuple(hashlib.sha1(payload[i : i + plen]).digest() for i in range(0, length, plen))
+    info = InfoDict(name="v", piece_length=plen, pieces=pieces, length=length)
+    storage = Storage(MemoryStorage(), info)
+    storage.set(0, payload)
+    storage.method.set(("v",), 20 * plen + 3, b"\x00BAD\x00")
+    before = sha1_pieces_cuda.launches
+    grid = verify_pieces(storage, info, hasher="gpu", batch_size=8, devices=[cuda, cuda])
+    assert sha1_pieces_cuda.launches - before == 2 * -(-info.num_pieces // 8)
+    one = verify_pieces(storage, info, hasher="gpu", batch_size=8, device=cuda)
+    cpu = verify_pieces(storage, info, hasher="cpu")
+    assert (grid == one).all() and (grid == cpu).all() and list(np.nonzero(~grid)[0]) == [20]
+    v = GPUVerifier(piece_length=plen, batch_size=5, mesh=make_mesh([cuda, cuda]))
+    assert v.batch_size == 6
+    ragged = [payload[i : i + n] for i, n in ((0, 0), (1, 55), (9, 16384), (77, 700), (5, 64))]
+    assert v.hash_pieces(ragged) == [hashlib.sha1(p).digest() for p in ragged]
+    padded, nblocks = pad_pieces(ragged[:4])
+    one_v = GPUVerifier(piece_length=plen, batch_size=4, device=cuda)
+    assert (v.digest_batch(padded, nblocks) == one_v.digest_batch(padded, nblocks)).all()
+
+
+def test_dryrun_multichip_on_card(cuda, capsys):
+    from torrent_tpu_torch.entry import dryrun_multichip
+
+    before = sha1_pieces_cuda.launches
+    got = dryrun_multichip(4)
+    assert got["mesh"] == {"hosts": 2, "dp": 2} and got["valid"] == 7 and got["batch"] == 8
+    assert sha1_pieces_cuda.launches - before == 2 * 4  # two verifies, one launch an entry
+    assert capsys.readouterr().out.startswith("dryrun_multichip OK: mesh={'hosts': 2, 'dp': 2}")
+
+
+def test_sched_grid_on_card(cuda, tmp_path):
+    """A scheduler whose SHA-1 lanes span two entries on the card:
+    zero-copy launches of whole grid blocks, hashlib's bitfield."""
+    from torrent_tpu_torch.parallel.verify import verify_pieces_sched
+    from torrent_tpu_torch.sched import HashPlaneScheduler, SchedulerConfig
+
+    storage, info = _sched_torrent(tmp_path, "grid", 96, 1 << 16, seed=4)
+
+    async def go():
+        sched = await HashPlaneScheduler(
+            SchedulerConfig(batch_target=32, flush_deadline=0.01), hasher="gpu", devices=[cuda, cuda]
+        ).start()
+        before = sha1_pieces_cuda.launches
+        try:
+            bf = await verify_pieces_sched(storage, info, sched)
+        finally:
+            await sched.close()
+        assert bf.all()
+        assert sched.mesh.size == 2
+        launches = sched.metrics_snapshot()["launches"]
+        assert sha1_pieces_cuda.launches - before == 2 * launches
+        _assert_clean(sched)
+
+    _sched_run(go())
+
+
 def _flat(tree):
     out = []
 

@@ -47,6 +47,7 @@ def test_package_has_the_slice():
         "torrent_tpu_torch.tools.make_torrent",
         "torrent_tpu_torch.compat",
         "torrent_tpu_torch.entry",
+        "torrent_tpu_torch.parallel.mesh",
         "torrent_tpu_torch.sched",
         "torrent_tpu_torch.sched.scheduler",
         "torrent_tpu_torch.sched.faults",
@@ -184,6 +185,23 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     )
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_grid_dry_run_loads_no_jax_and_no_reference():
+    """``entry.dryrun_multichip`` (the grid over ``parallel/mesh.py``)
+    runs in a fresh interpreter on CPU entries and loads neither jax nor
+    the reference."""
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import sys; from torrent_tpu_torch.entry import dryrun_multichip; "
+         "dryrun_multichip(4, device='cpu'); "
+         "print(sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'torrent_tpu')))"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert lines[0].startswith("dryrun_multichip OK: mesh={'hosts': 2, 'dp': 2}, batch=8, valid=7/8")
+    assert lines[-1] == "[]"
 
 
 def test_package_import_is_lazy():

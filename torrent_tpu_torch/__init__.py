@@ -8,7 +8,8 @@ BitTorrent session around it:
   mapping, batched reads through the native pread pool), ``ops`` (host
   padding, the plain PyTorch SHA-1 and the hand-written Hopper kernel);
 - ``models.verifier.GPUVerifier`` and ``parallel.verify.verify_pieces``
-  (``hasher="cpu"|"gpu"``): the full recheck;
+  (``hasher="cpu"|"gpu"``): the full recheck, on a grid of the
+  process's cards (``parallel.mesh``);
 - ``tools.make_torrent``: authoring on the same plane;
 - ``session`` (``Client``, ``Torrent``), ``net`` (peer wire, trackers)
   and ``server`` (the in-memory tracker): download, seed and resume a

@@ -379,12 +379,8 @@ class BridgeServer:
             ).start()
 
         def _count_devices() -> int:
-            import torch
-
-            dev = self.sched.device
-            if dev is not None and dev.type == "cuda":
-                return torch.cuda.device_count()
-            return 1  # the host itself: device="cpu" or hashlib
+            # the grid the lanes hash on; hashlib's is the host itself
+            return self.sched.mesh.size if self.sched.mesh is not None else 1
 
         async def _probe() -> None:
             try:

@@ -537,8 +537,9 @@ def build_v2(
 
 
 @functools.lru_cache(maxsize=4)
-def _piece_verifier(plen: int, device: torch.device):
-    """One SHA-1 hash-plane verifier per piece geometry and device."""
+def _piece_verifier(plen: int, device: torch.device | None):
+    """One SHA-1 hash-plane verifier per piece geometry and device (None:
+    the default grid, every card of the process)."""
     from torrent_tpu_torch.models.verifier import GPUVerifier
 
     return GPUVerifier(piece_length=plen, batch_size=256, device=device)
@@ -566,7 +567,7 @@ def _hybrid_hash_file(
     if hasher == "cpu":
         hash_batch = lambda ps: [hashlib.sha1(p).digest() for p in ps]  # noqa: E731
     else:
-        hash_batch = _piece_verifier(plen, resolve_device(device)).hash_pieces
+        hash_batch = _piece_verifier(plen, None if device is None else resolve_device(device)).hash_pieces
 
     v1_digs: list[bytes] = []
     state = {"carry": b""}

@@ -1,4 +1,4 @@
-"""GPUVerifier — the v1 hash plane on one device.
+"""GPUVerifier — the v1 hash plane on a grid of devices.
 
 The counterpart of ``torrent_tpu/models/verifier.py::TPUVerifier``, with
 the same contracts:
@@ -6,21 +6,26 @@ the same contracts:
 - ``verify_storage`` — full resume-recheck of a torrent: disk →
   ``Storage.read_batch`` → pad → device → masked SHA-1 chain → on-device
   digest compare → ``bool`` bitfield. Disk IO for batch *i+1* overlaps
-  the copy and the kernel of batch *i*.
+  the copies and the kernels of batch *i*.
 - ``hash_pieces`` / ``hash_bytes`` — authoring-side digests.
 - ``verify_batch`` / ``digest_batch`` / ``upload_batch`` /
   ``digest_uploaded`` — the raw steps, in numpy form.
 
-Every batch has ``batch_size`` rows; a ragged tail is filled with
-``nblocks=0`` sentinel rows. On a GPU the SHA-1 is the hand-written
-kernel (ops/sha1_cuda.py); with ``device="cpu"`` it is the plain PyTorch
-version. A verifier runs on one device: the reference's mesh and
-``shard_map`` become one verifier a rank of a ``torch.distributed``
-group (``parallel/distributed.py``).
+A verifier runs on this process's grid (``parallel/mesh.py``): every
+card of the process by default, as the reference's mesh takes every
+chip. ``batch_size`` rounds up to a multiple of the grid's size, and
+each entry hashes its contiguous block of every batch's rows on its own
+streams (the reference's ``shard_map`` of the kernel over
+``batch_sharding``); the host gets the rows back in order. Every batch
+has ``batch_size`` rows; a ragged tail is filled with ``nblocks=0``
+sentinel rows. On a GPU the SHA-1 is the hand-written kernel
+(ops/sha1_cuda.py); with ``device="cpu"`` it is the plain PyTorch
+version.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -40,96 +45,153 @@ from torrent_tpu_torch.ops.padding import (
 )
 from torrent_tpu_torch.ops.sha1_cuda import make_sha1_fn
 from torrent_tpu_torch.ops.sha1_torch import words_to_numpy
+from torrent_tpu_torch.parallel.mesh import local_grid, round_up_to_multiple, row_blocks
 from torrent_tpu_torch.parallel.verify import VerifyResult
 from torrent_tpu_torch.storage.storage import Storage
-from torrent_tpu_torch.utils.device import resolve_device
 
 
 class _CpuSlot:
-    """Staging slot for ``device="cpu"``: the plain SHA-1 reads the
-    staging buffer in place and finishes before ``launch`` returns, so
-    the buffer is free again as soon as the result is taken."""
+    """Staging slot for ``device="cpu"`` entries: the plain SHA-1 reads
+    each entry's block of the staging buffer in place and finishes
+    before ``launch`` returns, so the buffer is free again as soon as
+    the result is taken."""
 
-    def __init__(self, b: int, plen: int):
+    def __init__(self, b: int, plen: int, blocks: list):
         self.padded, _ = alloc_padded(b, plen)
         self.nblocks = np.zeros(b, dtype=np.int32)
+        self._blocks = blocks
         self.ok_dev = None
         self._ok = None
 
     def wait_host_free(self) -> None:
         pass
 
-    def launch(self, sha1, expected: torch.Tensor) -> None:
-        words = sha1(torch.from_numpy(self.padded), torch.from_numpy(self.nblocks))
-        self.ok_dev = (words == expected).all(dim=1)
-        self._ok = self.ok_dev.numpy()
+    def launch(self, sha1, expected: list, g: int) -> None:
+        """Hash batch ``g``: entry ``i`` compares its rows with its
+        rows of ``expected[i]`` (every batch's, in order)."""
+        self.ok_dev = []
+        for i, _, lo, hi in self._blocks:
+            w = hi - lo
+            words = sha1(torch.from_numpy(self.padded[lo:hi]), torch.from_numpy(self.nblocks[lo:hi]))
+            self.ok_dev.append((words == expected[i][g * w : (g + 1) * w]).all(dim=1))
+        self._ok = torch.cat(self.ok_dev).numpy()
 
     def fetch_ok(self) -> np.ndarray:
         return self._ok
 
 
-class _CudaSlot:
-    """Staging slot for a GPU: pinned host buffers, device buffers, and
-    the events that order them.
+class _CudaEntry:
+    """One grid entry's part of a :class:`_CudaSlot`: its device buffers,
+    its copy stream and the events that order them."""
 
-    ``copy_done`` marks the end of this slot's host→device copy, after
-    which the host buffers may be refilled; ``compute_done`` marks the
-    end of its kernel, compare and result copy, after which the device
-    buffers may be overwritten and the result read. ``ok_dev`` is the
-    last launch's ``bool[B]`` on the device, ordered on the compute
-    stream (the multi-process route counts it there).
+    def __init__(self, rows: int, padded_len: int, device: torch.device, compute):
+        self.data = torch.empty((rows, padded_len), dtype=torch.uint8, device=device)
+        self.nblocks = torch.empty(rows, dtype=torch.int32, device=device)
+        self.copy = torch.cuda.Stream(device=device)
+        self.compute = compute
+        self.copy_done = torch.cuda.Event()
+        self.compute_done = torch.cuda.Event()
+
+
+class _CudaSlot:
+    """Staging slot for a grid of GPUs: one pinned host slab of the whole
+    batch, and for each entry its device buffers, copy stream and
+    events, on the entry's own compute stream.
+
+    An entry's ``copy_done`` marks the end of its host→device copy of its
+    block, after which that block of the host slab may be refilled;
+    ``compute_done`` marks the end of its kernel, compare and result
+    copy, after which its device buffers may be overwritten and its
+    rows of the result read. ``ok_dev`` is the last launch's ``bool``
+    rows on each entry's device, ordered on the entry's compute stream
+    (the multi-process route counts them there).
     """
 
-    def __init__(self, b: int, plen: int, device: torch.device, copy_stream):
+    def __init__(self, b: int, plen: int, blocks: list, computes: list):
         padded_len = padded_len_for(plen)
         self._host_data = torch.empty((b, padded_len), dtype=torch.uint8, pin_memory=True)
         self._host_nblocks = torch.zeros(b, dtype=torch.int32, pin_memory=True)
         self._host_ok = torch.zeros(b, dtype=torch.bool, pin_memory=True)
         self.padded = self._host_data.numpy()
         self.nblocks = self._host_nblocks.numpy()
-        self._dev_data = torch.empty((b, padded_len), dtype=torch.uint8, device=device)
-        self._dev_nblocks = torch.empty(b, dtype=torch.int32, device=device)
-        self._device = device
-        self._copy_stream = copy_stream
-        self._copy_done = torch.cuda.Event()
-        self._compute_done = torch.cuda.Event()
+        self._blocks = blocks
+        self._entries = [_CudaEntry(hi - lo, padded_len, dev, computes[i]) for i, dev, lo, hi in blocks]
         self.ok_dev = None
 
     def wait_host_free(self) -> None:
         # an event never recorded is complete: the first fill never waits
-        self._copy_done.synchronize()
+        for e in self._entries:
+            e.copy_done.synchronize()
 
-    def launch(self, sha1, expected: torch.Tensor) -> None:
-        with torch.cuda.stream(self._copy_stream):
-            # the previous kernel on this slot still reads the device buffers
-            self._copy_stream.wait_event(self._compute_done)
-            self._dev_data.copy_(self._host_data, non_blocking=True)
-            self._dev_nblocks.copy_(self._host_nblocks, non_blocking=True)
-            self._copy_done.record(self._copy_stream)
-        compute = torch.cuda.current_stream(self._device)
-        compute.wait_event(self._copy_done)
-        words = sha1(self._dev_data, self._dev_nblocks)
-        self.ok_dev = (words == expected).all(dim=1)
-        self._host_ok.copy_(self.ok_dev, non_blocking=True)
-        self._compute_done.record(compute)
+    def launch(self, sha1, expected: list, g: int) -> None:
+        """Hash batch ``g``: entry ``i`` copies and hashes its block and
+        compares it with its rows of ``expected[i]`` (every batch's, in
+        order), all on its own streams."""
+        self.ok_dev = []
+        for (i, _, lo, hi), e in zip(self._blocks, self._entries):
+            w = hi - lo
+            with torch.cuda.stream(e.copy):
+                # the previous kernel on this slot still reads the device buffers
+                e.copy.wait_event(e.compute_done)
+                e.data.copy_(self._host_data[lo:hi], non_blocking=True)
+                e.nblocks.copy_(self._host_nblocks[lo:hi], non_blocking=True)
+                e.copy_done.record(e.copy)
+            with torch.cuda.stream(e.compute):
+                e.compute.wait_event(e.copy_done)
+                words = sha1(e.data, e.nblocks)
+                ok = (words == expected[i][g * w : (g + 1) * w]).all(dim=1)
+                self._host_ok[lo:hi].copy_(ok, non_blocking=True)
+                e.compute_done.record(e.compute)
+            self.ok_dev.append(ok)
 
     def fetch_ok(self) -> np.ndarray:
-        self._compute_done.synchronize()
+        for e in self._entries:
+            e.compute_done.synchronize()
         return self._host_ok.numpy()
 
 
 class GPUVerifier:
-    def __init__(self, piece_length: int, batch_size: int = 1024, device=None):
+    def __init__(
+        self,
+        piece_length: int,
+        batch_size: int = 1024,
+        device=None,
+        devices=None,
+        mesh=None,
+    ):
+        """``device`` alone is a one-entry grid, ``devices`` a grid of
+        those entries, ``mesh`` this process's entries of a
+        ``parallel.mesh.Mesh``; with none of them the grid is every card
+        of the process (``make_mesh()``), and a host without CUDA
+        raises."""
         if piece_length <= 0:
             raise ValueError("piece_length must be positive")
-        self.device = resolve_device(device)
+        self.mesh = local_grid(device, devices, mesh)
+        self.devices = self.mesh.entries
+        self.device = self.devices[0]
         self.piece_length = piece_length
-        self.batch_size = max(1, int(batch_size))
+        self.batch_size = round_up_to_multiple(max(int(batch_size), self.mesh.size), self.mesh.size)
         self.padded_len = padded_len_for(piece_length)
         self._sha1 = make_sha1_fn(self.device)
+        self._cuda = self.device.type == "cuda"
+        # each entry's compute stream (two entries on one card run apart)
+        self._streams = [torch.cuda.Stream(device=d) for d in self.devices] if self._cuda else None
         self.last_result: VerifyResult | None = None
 
     # ------------------------------------------------------------ raw steps
+
+    def _on(self, i: int):
+        """Entry ``i``'s compute stream as the current one (its device's)."""
+        return torch.cuda.stream(self._streams[i]) if self._cuda else contextlib.nullcontext()
+
+    def _to_grid(self, *arrays) -> tuple[list, int]:
+        """The arrays with sentinel (all-zero) rows appended up to a
+        multiple of the grid's size, and the live row count."""
+        n = arrays[0].shape[0]
+        pad = round_up_to_multiple(max(n, 1), self.mesh.size) - n
+        if pad:
+            arrays = tuple(np.concatenate([a, np.zeros((pad, *a.shape[1:]), dtype=a.dtype)]) for a in arrays)
+        return list(arrays), n
 
     def verify_batch(
         self, padded: np.ndarray, nblocks: np.ndarray, expected_words: np.ndarray
@@ -137,46 +199,79 @@ class GPUVerifier:
         """bool[B]: does each padded row hash to its expected digest words.
 
         ``padded`` is ``uint8[B, padded_len]`` or host-order
-        ``uint32[B, padded_len/4]``; the compare runs on the device."""
-        dev = self.device
-        words = self._sha1(to_device(padded, dev), to_device(nblocks.astype(np.int32), dev))
-        ok = (words == to_device(expected_words.astype(np.uint32), dev)).all(dim=1)
-        return ok.cpu().numpy()
+        ``uint32[B, padded_len/4]``; each entry compares its rows on its
+        device."""
+        (padded, nblocks, expected), n = self._to_grid(
+            padded, np.asarray(nblocks).astype(np.int32), np.asarray(expected_words).astype(np.uint32)
+        )
+        oks = []
+        for i, dev, lo, hi in row_blocks(self.mesh, len(padded)):
+            with self._on(i):
+                words = self._sha1(to_device(padded[lo:hi], dev), to_device(nblocks[lo:hi], dev))
+                oks.append((words == to_device(expected[lo:hi], dev)).all(dim=1))
+        out = []
+        for i, ok in enumerate(oks):
+            with self._on(i):
+                out.append(ok.cpu().numpy())
+        return np.concatenate(out)[:n]
 
     def digest_batch(self, padded: np.ndarray, nblocks: np.ndarray) -> np.ndarray:
         """uint32[B, 5] big-endian digest words for each row."""
-        dev = self.device
-        return words_to_numpy(
-            self._sha1(to_device(padded, dev), to_device(nblocks.astype(np.int32), dev))
-        )
+        (padded, nblocks), n = self._to_grid(padded, np.asarray(nblocks).astype(np.int32))
+        words = []
+        for i, dev, lo, hi in row_blocks(self.mesh, len(padded)):
+            with self._on(i):
+                words.append(self._sha1(to_device(padded[lo:hi], dev), to_device(nblocks[lo:hi], dev)))
+        out = []
+        for i, w in enumerate(words):
+            with self._on(i):
+                out.append(words_to_numpy(w))
+        return np.concatenate(out)[:n]
 
     def upload_supported(self, padded) -> bool:
-        """Whether :meth:`upload_batch` can take this batch."""
-        return isinstance(padded, np.ndarray) and padded.ndim == 2
+        """Whether :meth:`upload_batch` can take this batch: a 2-D array
+        whose rows split evenly over the grid."""
+        return (
+            isinstance(padded, np.ndarray)
+            and padded.ndim == 2
+            and padded.shape[0] % self.mesh.size == 0
+        )
 
-    def upload_batch(self, padded: np.ndarray, stream=None):
-        """Explicit host→device copy; returns a handle for
-        :meth:`digest_uploaded`, or None when the batch is not a 2-D
-        array. Without ``stream`` the staging buffer may be reused when
-        this returns. With ``stream`` (a GPU verifier), the copy runs
-        ``non_blocking`` on that stream (``compat.to_device_on_stream``):
-        from a pinned buffer it is asynchronous, and the caller orders
-        the buffer's reuse and the handle's use on the stream."""
+    def upload_batch(self, padded: np.ndarray, streams=None):
+        """Explicit host→device copy of each entry's row block; returns
+        the list of per-entry device tensors (the handle for
+        :meth:`digest_uploaded`), or None when :meth:`upload_supported`
+        refuses the batch. Without ``streams`` the staging buffer may be
+        reused when this returns. With ``streams`` (one a grid entry, on
+        a GPU grid), each block's copy runs ``non_blocking`` on its entry's
+        stream (``compat.to_device_on_stream``): from a pinned buffer it
+        is asynchronous, and the caller orders the buffer's reuse and the
+        handle's use on the streams."""
         if not self.upload_supported(padded):
             return None
-        if stream is not None and self.device.type == "cuda":
-            return to_device_on_stream(padded, stream)
-        return to_device(padded, self.device)
+        blocks = row_blocks(self.mesh, padded.shape[0])
+        if streams is not None and self._cuda:
+            return [to_device_on_stream(padded[lo:hi], streams[i]) for i, _, lo, hi in blocks]
+        return [to_device(padded[lo:hi], dev) for _, dev, lo, hi in blocks]
 
-    def digest_uploaded(self, handle, nblocks) -> torch.Tensor:
+    def digest_uploaded(self, handle, nblocks, streams=None) -> list:
         """Launch the digest on an :meth:`upload_batch` handle without
-        fetching, on the current stream: returns the device
-        ``int32[B, 5]`` words, and the caller's
-        ``sha1_torch.words_to_numpy`` is the device→host copy.
-        ``nblocks`` is a numpy array or a tensor already on the device."""
-        if not isinstance(nblocks, torch.Tensor):
-            nblocks = to_device(np.asarray(nblocks).astype(np.int32), self.device)
-        return self._sha1(handle, nblocks)
+        fetching: returns each entry's device ``int32[rows, 5]`` words,
+        in row order, and the caller's ``sha1_torch.words_to_numpy`` is
+        the device→host copy. Entry ``i`` launches on ``streams[i]`` when
+        given, else on its device's current stream. ``nblocks`` is a
+        numpy array of the batch's counts or a list of each entry's,
+        already on its device."""
+        if not isinstance(nblocks, (list, tuple)):
+            nblocks = np.asarray(nblocks).astype(np.int32)
+            rows = sum(h.shape[0] for h in handle)
+            nblocks = [to_device(nblocks[lo:hi], dev) for _, dev, lo, hi in row_blocks(self.mesh, rows)]
+        words = []
+        for i, (data, nbl) in enumerate(zip(handle, nblocks)):
+            ctx = torch.cuda.stream(streams[i]) if streams is not None else contextlib.nullcontext()
+            with ctx:
+                words.append(self._sha1(data, nbl))
+        return words
 
     # ------------------------------------------------------------ authoring
 
@@ -213,16 +308,29 @@ class GPUVerifier:
     # ------------------------------------------------------------ recheck
 
     def staging_slots(self) -> list:
-        """The two staging slots a recheck alternates: pinned host and
-        device buffers ordered by events on a GPU (``_CudaSlot``), plain
+        """The two staging slots a recheck alternates, each one pinned
+        host slab of the whole batch with every entry's device buffers
+        and copy stream, ordered by events on a GPU (``_CudaSlot``), plain
         numpy buffers on the CPU (``_CpuSlot``). Each has ``padded`` and
         ``nblocks`` to fill after ``wait_host_free()``, then
-        ``launch(sha1, expected)`` and ``fetch_ok()``."""
+        ``launch(sha1, expected_rows, g)`` and ``fetch_ok()``."""
         b, plen = self.batch_size, self.piece_length
-        if self.device.type == "cuda":
-            copy_stream = torch.cuda.Stream(self.device)
-            return [_CudaSlot(b, plen, self.device, copy_stream) for _ in range(2)]
-        return [_CpuSlot(b, plen) for _ in range(2)]
+        blocks = row_blocks(self.mesh, b)
+        if self._cuda:
+            return [_CudaSlot(b, plen, blocks, self._streams) for _ in range(2)]
+        return [_CpuSlot(b, plen, blocks) for _ in range(2)]
+
+    def expected_rows(self, expected: np.ndarray) -> list:
+        """Each entry's rows of ``expected`` (``uint32[G*B, 5]``, batch
+        ``g`` at rows ``g*B``), every batch's in order, on the entry's
+        device: what a slot's ``launch`` compares with."""
+        b = self.batch_size
+        per_batch = expected.reshape(-1, b, 5)
+        out = []
+        for i, dev, lo, hi in row_blocks(self.mesh, b):
+            with self._on(i):
+                out.append(to_device(per_batch[:, lo:hi].reshape(-1, 5), dev))
+        return out
 
     def verify_storage(
         self,
@@ -235,10 +343,11 @@ class GPUVerifier:
 
         Two staging slots alternate: a loader thread fills one (with
         ``io_threads`` striped reads) while the other is copied to the
-        device and hashed. On a GPU the slots are pinned buffers, the
-        copy runs on its own stream, and events order every reuse: a
-        host slot is refilled only after its copy completed, a device
-        slot is overwritten only after its kernel completed.
+        grid and hashed. On a GPU the slots are pinned buffers, each
+        entry copies its block on its own stream, and events order every
+        reuse: a host slot is refilled only after every entry's copy
+        completed, an entry's device buffers are overwritten only after
+        its kernel completed.
         """
         if info.piece_length != self.piece_length:
             raise ValueError(
@@ -255,7 +364,7 @@ class GPUVerifier:
         # rows of the last batch compare against zeros and are dropped
         expected = np.zeros((-(-n // b) * b, 5), dtype=np.uint32)
         expected[:n] = digests_to_words(info.pieces)
-        expected_dev = to_device(expected, self.device)
+        expected_dev = self.expected_rows(expected)
         slots = self.staging_slots()
         stripes = max(1, io_threads)
         io_pool = ThreadPoolExecutor(max_workers=stripes) if stripes > 1 else None
@@ -311,7 +420,7 @@ class GPUVerifier:
                     next_start = start + b
                     if next_start < n:
                         fut = loader.submit(load, slots[1 - cur], next_start)
-                    slots[cur].launch(self._sha1, expected_dev[start : start + b])
+                    slots[cur].launch(self._sha1, expected_dev, start // b)
                     inflight.append((start, k, slots[cur]))
                     while len(inflight) > 1:
                         drain_one()

@@ -116,6 +116,9 @@ def sha1_pieces_torch(data: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor
     return _to_int32_bits(torch.stack(state, dim=1))
 
 
-def words_to_numpy(words: torch.Tensor) -> np.ndarray:
-    """Device ``int32[B, 5]`` digest words → host ``uint32[B, 5]``."""
+def words_to_numpy(words) -> np.ndarray:
+    """Device ``int32[B, 5]`` digest words → host ``uint32[B, 5]``; a
+    list of such tensors (a grid's row blocks, in order) is joined."""
+    if isinstance(words, (list, tuple)):
+        return np.concatenate([words_to_numpy(w) for w in words])
     return words.cpu().numpy().view(np.uint32)

@@ -1,3 +1,4 @@
+from torrent_tpu_torch.parallel.mesh import make_mesh, row_blocks
 from torrent_tpu_torch.parallel.verify import VerifyResult, verify_pieces, verify_pieces_sched
 from torrent_tpu_torch.parallel.bulk import (
     LibraryResult,
@@ -12,6 +13,8 @@ from torrent_tpu_torch.parallel.distributed import (
 )
 
 __all__ = [
+    "make_mesh",
+    "row_blocks",
     "verify_pieces",
     "verify_pieces_sched",
     "VerifyResult",

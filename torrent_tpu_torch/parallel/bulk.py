@@ -57,12 +57,16 @@ def verify_library(
     io_threads: int = 4,
     progress_cb=None,
     verifier=None,
+    devices=None,
+    mesh=None,
 ) -> LibraryResult:
     """Recheck every torrent; returns per-torrent bitfields in order.
 
     ``hasher``: ``"cpu"`` (streaming hashlib) or ``"gpu"`` (the batched
-    device path on ``device``: None means the GPU, and a host without
-    one raises; ``"cpu"`` is the plain PyTorch path).
+    device path on a grid: ``device`` alone, ``devices`` or ``mesh``, as
+    ``GPUVerifier`` takes them; with none of them every card of the
+    process, and a host without one raises; ``device="cpu"`` is the
+    plain PyTorch path).
     ``verifier``: reuse a ``GPUVerifier`` across calls (its geometry
     must match every torrent's piece length) — repeated library sweeps
     then skip the set-up entirely.
@@ -105,7 +109,8 @@ def verify_library(
             group_verifier = verifier
         else:
             group_verifier = GPUVerifier(
-                piece_length=plen, batch_size=batch_size, device=device
+                piece_length=plen, batch_size=batch_size, device=device,
+                devices=devices, mesh=mesh,
             )
         b = group_verifier.batch_size
         # Flattened torrent-major work list: rows of one batch that belong

@@ -1,31 +1,35 @@
 """Multi-process support for the verify/bulk hash planes, on
 ``torch.distributed``.
 
-The counterpart of the reference's ``parallel/distributed.py`` and
-``parallel/mesh.py``. The reference shards each global batch over a
-``(hosts, dp)`` mesh and reduces over DCN; here each rank of a
-``torch.distributed`` process group runs its own device planes on its
-own device, and only bitfields, counts and heartbeat bytes cross ranks:
+The counterpart of the reference's ``parallel/distributed.py``. The
+reference shards each global batch over a ``(hosts, dp)`` mesh and
+reduces over DCN; here each rank of a ``torch.distributed`` process
+group hashes on its own row of the grid (``parallel/mesh.py``), its
+local cards, and only bitfields, counts and heartbeat bytes cross ranks:
 
 - :func:`initialize` — ``init_process_group`` with an idempotence guard,
-  the rank's device set, and the backend stated, never guessed.
+  the rank's cards (:func:`local_devices`), and the backend stated,
+  never guessed.
 - :func:`allgather_rows` — one ``all_gather`` of a fixed-size ``uint8``
   row from every rank (the bitfield and the fabric heartbeat ride it).
 - :func:`allgather_bitfield` — OR-assembled disjoint bitfields.
-- :func:`psum_valid_count` — the count of valid pieces, summed on the
-  rank's device and ``all_reduce``d as one int64.
+- :func:`psum_valid_count` — the count of valid pieces, summed on each
+  of the rank's entries and ``all_reduce``d as one int64.
 - :func:`verify_storage_distributed` — the multi-process recheck: each
-  rank reads and hashes its slice of every global batch with its own
-  ``GPUVerifier``; every rank returns the same global bitfield.
+  rank reads its slice of every global batch and hashes it over its
+  entries with its own ``GPUVerifier``; every rank returns the same
+  global bitfield.
 - :func:`verify_pieces_v2_distributed` / :func:`verify_library_distributed`
   — round-robin strides of pieces (v2) or torrents (library).
 
 Row layout contract (the reference's): over ``P`` ranks, rank ``p``
 loads pieces ``[g*B + p*L, g*B + (p+1)*L)`` of global batch ``g``, with
-``L = B / P``. Piece bytes never cross a rank.
+``L = B / P``, and its ``D`` entries take contiguous blocks of ``L / D``
+of them. Piece bytes never cross a rank.
 
 Backends: NCCL keeps the count on the card and needs one CUDA device a
-rank; gloo carries host tensors and may share one card between ranks.
+rank at the least; gloo carries host tensors and may share one card
+between ranks.
 """
 
 from __future__ import annotations
@@ -40,6 +44,10 @@ import torch
 import torch.distributed as dist
 
 DEFAULT_TIMEOUT_S = 600.0
+
+# the rank's cards, as initialize() divided the host's among its ranks;
+# None outside a group that initialize() joined on CUDA
+_local_cards: list | None = None
 
 
 def _grouped() -> bool:
@@ -65,16 +73,20 @@ def initialize(
     """Join the default process group; returns its backend.
 
     Idempotent: with a group already initialised this returns its
-    backend and changes nothing. ``device`` is the rank's device
-    (None means CUDA, ``"cpu"`` the plain path). On CUDA the rank's
-    device is ``cuda:(local_rank % device_count)``, set with
-    ``torch.cuda.set_device``; ``local_rank`` is ``LOCAL_RANK`` when a
-    launcher set it, else ``rank``. ``backend=None`` means ``"nccl"`` on
-    CUDA and ``"gloo"`` on the CPU. ``"nccl"`` with more ranks on this
-    host (``LOCAL_WORLD_SIZE``, else ``world_size``) than CUDA devices
-    raises ``ValueError`` before any group is created: NCCL cannot run
-    two ranks on one device, and ``backend="gloo"`` can. ``timeout`` is
-    every collective's, in seconds."""
+    backend and changes nothing. ``device`` is the rank's device kind
+    (None means CUDA, ``"cpu"`` the plain path). On CUDA the host's
+    cards are divided among its ranks (:func:`rank_cards`): one rank a
+    host takes every card, ``torchrun``'s one rank a card takes one; the
+    first is set with ``torch.cuda.set_device`` and all are the rank's
+    :func:`local_devices`. ``local_rank`` is ``LOCAL_RANK`` when a
+    launcher set it, else ``rank``; the host's ranks are
+    ``LOCAL_WORLD_SIZE``, else ``world_size``. ``backend=None`` means
+    ``"nccl"`` on CUDA and ``"gloo"`` on the CPU. ``"nccl"`` with more
+    ranks on this host than CUDA devices raises ``ValueError`` before
+    any group is created: NCCL cannot run two ranks on one device, and
+    ``backend="gloo"`` can. ``timeout`` is every collective's, in
+    seconds."""
+    global _local_cards
     if dist.is_initialized():
         return dist.get_backend()
     on_cuda = torch.device("cuda" if device is None else device).type == "cuda"
@@ -84,19 +96,21 @@ def initialize(
             "pass device='cpu' to run the plain PyTorch path explicitly"
         )
     backend = backend or ("nccl" if on_cuda else "gloo")
+    local_ranks = int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
     if backend == "nccl":
         if not on_cuda:
             raise ValueError("backend 'nccl' needs a CUDA device; use backend='gloo' on the CPU")
-        local_ranks = int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
         cards = torch.cuda.device_count()
         if local_ranks > cards:
             raise ValueError(
                 f"backend 'nccl' needs one CUDA device a rank: {local_ranks} ranks on this "
                 f"host, {cards} devices; pass backend=\"gloo\" to share a device between ranks"
             )
+    mine = None
     if on_cuda:
         local_rank = int(os.environ.get("LOCAL_RANK", rank))
-        torch.cuda.set_device(local_rank % torch.cuda.device_count())
+        mine = rank_cards(local_rank, local_ranks, torch.cuda.device_count())
+        torch.cuda.set_device(mine[0])
     dist.init_process_group(
         backend,
         init_method=init_method,
@@ -104,13 +118,39 @@ def initialize(
         rank=rank,
         timeout=timedelta(seconds=timeout),
     )
+    _local_cards = mine
     return backend
+
+
+def rank_cards(local_rank: int, local_ranks: int, cards: int) -> list:
+    """The CUDA devices of local rank ``local_rank`` of ``local_ranks``
+    on a host of ``cards``: an even share of contiguous cards when every
+    rank can have one, else card ``local_rank % cards`` (ranks share a
+    card, which only gloo allows)."""
+    if local_ranks > cards:
+        return [torch.device("cuda", local_rank % cards)]
+    share = cards // local_ranks
+    return [torch.device("cuda", local_rank * share + i) for i in range(share)]
+
+
+def local_devices() -> list:
+    """This process's cards: those :func:`initialize` gave the rank, else
+    every visible card. Raises ``DeviceUnavailable`` without CUDA (None
+    means CUDA, and nothing falls back to the CPU)."""
+    from torrent_tpu_torch.utils.device import resolve_device
+
+    current = resolve_device(None)
+    if _local_cards is not None:
+        return list(_local_cards)
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())] or [current]
 
 
 def shutdown() -> None:
     """Leave the default process group, if one is initialised."""
+    global _local_cards
     if _grouped():
         dist.destroy_process_group()
+    _local_cards = None
 
 
 def _collective_device():
@@ -143,19 +183,26 @@ def allgather_bitfield(local_contrib: np.ndarray) -> np.ndarray:
     return allgather_rows(np.asarray(local_contrib).astype(np.uint8)).any(axis=0)
 
 
-def psum_valid_count(ok_local: torch.Tensor) -> torch.Tensor:
-    """The count of True in every rank's ``ok_local`` (a bool tensor on
-    the rank's device), as one int64 ``all_reduce``d over the group.
-    Summed where ``ok_local`` lives; under NCCL the count stays on the
-    card and the result is a CUDA tensor, under gloo it goes to the
-    host first. ``int()`` of the result is the same total on every
-    rank."""
-    count = ok_local.sum(dtype=torch.int64).reshape(1)
+def psum_valid_count(ok_local) -> torch.Tensor:
+    """The count of True in every rank's ``ok_local`` (a bool tensor, or
+    a list of them, one a grid entry, each on its entry's device), as
+    one int64 ``all_reduce``d over the group. Each entry's part is
+    summed where it lives and the rank's parts are added before the one
+    collective; under NCCL the count stays on the card and the result is
+    a CUDA tensor, under gloo it goes to the host first. ``int()`` of the
+    result is the same total on every rank."""
+    parts = [ok_local] if isinstance(ok_local, torch.Tensor) else list(ok_local)
+    dev = _collective_device() if _grouped() else parts[0].device
+    count = None
+    for part in parts:
+        if part.is_cuda:
+            # the sum reads the part on this device's current stream;
+            # keep its memory from reuse by the stream that made it
+            part.record_stream(torch.cuda.current_stream(part.device))
+        c = part.sum(dtype=torch.int64).reshape(1).to(dev)
+        count = c if count is None else count + c
     if not _grouped():
         return count
-    dev = _collective_device()
-    if count.device != dev:
-        count = count.to(dev)
     dist.all_reduce(count)
     return count
 
@@ -167,6 +214,8 @@ def verify_storage_distributed(
     device=None,
     progress_cb=None,
     io_threads: int = 4,
+    devices=None,
+    mesh=None,
 ):
     """The multi-process recheck; returns ``(bitfield, n_valid)``,
     identical on every rank. ``n_valid`` comes from the count
@@ -175,23 +224,31 @@ def verify_storage_distributed(
     out-of-range rows carry ``expected = 0``, which no SHA-1 digest
     equals.
 
-    Each rank owns one ``GPUVerifier`` of batch ``L = batch_size /
-    world_size`` on ``device`` (None means the rank's CUDA device) and
-    reads its rows of each global batch into the verifier's two staging
-    slots, a loader thread filling one while the other is hashed. Every
-    rank enters the count collective once per global batch, also with an
-    empty tail slice: a rank that left early would deadlock its peers.
+    The grid is ``mesh``, or one over the group of ``devices``, of
+    ``device``, or of every rank's cards (``parallel/mesh.py``); rank
+    ``p`` hashes on row ``p``, its ``D`` entries. ``batch_size`` rounds
+    up to a multiple of the grid's size, as the reference's verifier's
+    does, and each rank owns one ``GPUVerifier`` of batch ``L =
+    batch_size / world_size`` over its entries: it reads its rows of
+    each global batch into the verifier's two staging slots, a loader
+    thread filling one while the other is hashed, each entry its block
+    of ``L / D`` rows. Every rank enters the count collective once per
+    global batch, also with an empty tail slice: a rank that left early
+    would deadlock its peers.
     """
-    from torrent_tpu_torch.compat import to_device
     from torrent_tpu_torch.models.verifier import GPUVerifier
     from torrent_tpu_torch.ops.padding import digests_to_words, pad_in_place
+    from torrent_tpu_torch.parallel.mesh import round_up_to_multiple, spanning_grid
 
     nproc, pid = world()
-    B = max(1, int(batch_size))
+    grid = spanning_grid(device, devices, mesh)
+    B = round_up_to_multiple(max(1, int(batch_size), grid.size), grid.size)
     if B % nproc:
         raise ValueError(f"batch_size {B} not divisible by {nproc} processes")
     L = B // nproc
-    verifier = GPUVerifier(piece_length=info.piece_length, batch_size=L, device=device)
+    verifier = GPUVerifier(piece_length=info.piece_length, batch_size=L, mesh=grid)
+    if verifier.batch_size != L:
+        raise ValueError(f"rank {pid}'s {L} rows of a batch do not split over its {verifier.mesh.size} entries")
     n = info.num_pieces
     plen = info.piece_length
     n_batches = math.ceil(n / B)
@@ -204,7 +261,7 @@ def verify_storage_distributed(
         hi = min(lo + L, n)
         if hi > lo:
             expected[g * L : g * L + hi - lo] = expected_all[lo:hi]
-    expected_dev = to_device(expected, verifier.device)
+    expected_dev = verifier.expected_rows(expected)
     local_contrib = np.zeros(n, dtype=bool)
     slots = verifier.staging_slots()
     stripes = max(1, io_threads)
@@ -260,7 +317,7 @@ def verify_storage_distributed(
                     # its result lives apart from the host buffers
                     fut = loader.submit(load, slots[(g + 1) % 2], g + 1)
                 slot = slots[g % 2]
-                slot.launch(verifier._sha1, expected_dev[g * L : (g + 1) * L])
+                slot.launch(verifier._sha1, expected_dev, g)
                 if pending is not None:
                     # the kernel of batch g runs while batch g-1 is counted
                     drain(*pending)
@@ -310,12 +367,16 @@ def verify_library_distributed(
     device=None,
     io_threads: int = 4,
     progress_cb=None,
+    devices=None,
+    mesh=None,
 ):
     """Multi-process bulk library validation (BASELINE config 5): each
     rank runs ``verify_library(hasher="gpu")`` over its round-robin shard
-    of the library on its own device, then the per-torrent bitfields
-    are assembled over one packed allgather. Returns ``(bitfields,
-    n_valid)``, identical on every rank.
+    of the library on its own entries of the grid (``device``,
+    ``devices`` or ``mesh``, as :func:`verify_storage_distributed` takes
+    them; every card of the rank by default), then the per-torrent
+    bitfields are assembled over one packed allgather. Returns
+    ``(bitfields, n_valid)``, identical on every rank.
 
     ``items``: ``list[(Storage, InfoDict)]`` — the SAME list, in the
     same order, on every rank (each opens its own storage handles; only
@@ -334,6 +395,8 @@ def verify_library_distributed(
         device=device,
         io_threads=io_threads,
         progress_cb=progress_cb,
+        devices=devices,
+        mesh=None if mesh is None else mesh.local(),
     )
     offsets = np.zeros(len(items) + 1, dtype=np.int64)
     for i, (_, info) in enumerate(items):

@@ -21,6 +21,8 @@ tree (up to 9 levels a launch), and the roots compared on the device.
 The scheduler sessions (``read_pieces_chunk`` / ``read_pieces_into`` →
 ``enqueue_torrent_sched`` → ``verify_pieces_sched``) submit the pieces
 to a shared ``sched.HashPlaneScheduler`` instead of owning a batch loop.
+The v1 device route hashes on a grid of devices (``parallel/mesh.py``),
+every card of the process by default, as the reference's on its mesh.
 In a ``torch.distributed`` group of more than one rank, the device
 routes go multi-process (``parallel/distributed.py``), as the
 reference's go over ``jax.distributed``.
@@ -93,35 +95,44 @@ def verify_pieces_gpu(
     progress_cb: ProgressCb | None = None,
     io_threads: int = 4,
     local: bool = False,
+    devices=None,
+    mesh=None,
 ) -> np.ndarray:
     """Batched device recheck; overlaps disk reads with device hashing.
 
-    ``device=None`` means the GPU, and a host without one raises.
+    The grid (``parallel/mesh.py``) is ``mesh``, or ``devices``, or the
+    one entry ``device``; with none of them every card of the process,
+    and a host without one raises.
 
-    In a ``torch.distributed`` default process group of more than one
-    rank this routes to the multi-process path: every rank verifies its
-    slice of each global batch and all return the identical global
-    bitfield (``parallel/distributed.py``). ``local=True`` keeps a rank
-    of such a group on the rank-local path, as a local-only mesh does in
-    the reference.
+    Routed on the grid's process span, as the reference routes on its
+    mesh's: in a ``torch.distributed`` default process group of more
+    than one rank, a grid over the group (the default, or one built
+    from ``device`` / ``devices``) takes the multi-process path, where
+    every rank verifies its slice of each global batch on its own
+    entries and all return the identical global bitfield
+    (``parallel/distributed.py``). A grid of this process's entries
+    alone (``mesh=make_mesh(devices, n_hosts=1)``, or ``local=True``)
+    keeps the rank on the local path.
     """
+    from torrent_tpu_torch.models.verifier import GPUVerifier
     from torrent_tpu_torch.parallel.distributed import verify_storage_distributed, world
+    from torrent_tpu_torch.parallel.mesh import spanning_grid
 
     if not local and world()[0] > 1:
-        bitfield, _ = verify_storage_distributed(
-            storage,
-            info,
-            batch_size=batch_size,
-            device=device,
-            progress_cb=progress_cb,
-            io_threads=io_threads,
-        )
-        return bitfield
-
-    from torrent_tpu_torch.models.verifier import GPUVerifier
-
+        mesh = spanning_grid(device, devices, mesh)
+        if mesh.process_span() > 1:
+            bitfield, _ = verify_storage_distributed(
+                storage,
+                info,
+                batch_size=batch_size,
+                mesh=mesh,
+                progress_cb=progress_cb,
+                io_threads=io_threads,
+            )
+            return bitfield
+        device = devices = None
     verifier = GPUVerifier(
-        piece_length=info.piece_length, batch_size=batch_size, device=device
+        piece_length=info.piece_length, batch_size=batch_size, device=device, devices=devices, mesh=mesh
     )
     return verifier.verify_storage(
         storage, info, progress_cb=progress_cb, io_threads=io_threads
@@ -504,9 +515,11 @@ def verify_pieces(
 
     ``hasher``: ``"gpu"`` (the default: the batched device path, the
     counterpart of the reference's ``"tpu"``; takes ``device``,
-    ``batch_size``, ``io_threads`` and ``local``) or ``"cpu"``
-    (streaming hashlib). v2 session infos (session/v2.py) route to the
-    merkle recheck automatically.
+    ``devices``, ``mesh``, ``batch_size``, ``io_threads`` and ``local``)
+    or ``"cpu"`` (streaming hashlib). v2 session infos (session/v2.py)
+    route to the merkle recheck automatically; it runs on one card, as
+    the reference's v2 plane has no mesh, and ignores ``devices`` and
+    ``mesh``.
 
     In a ``torch.distributed`` group of more than one rank both device
     routes go multi-process, and every rank must call this on the same

@@ -502,14 +502,19 @@ class _LaneBreaker:
 # --------------------------------------------------------------- planes
 
 
-def build_builtin_plane(hasher: str, algo: str, bucket: int, batch: int, device=None):
+def build_builtin_plane(
+    hasher: str, algo: str, bucket: int, batch: int, device=None, mesh=None
+):
     """The plane the scheduler builds when no ``plane_factory`` is set.
 
     Module-level so fault injection (``sched/faults.py``) can wrap the
     real planes through the ``plane_factory`` seam without duplicating
     the construction rules. ``hasher="gpu"`` planes run on ``device``
     (None means the GPU; ``"cpu"`` the plain PyTorch versions), which
-    alone decides the kernel or plain version.
+    alone decides the kernel or plain version; a SHA-1 plane spans
+    ``mesh`` when one is given (every card of the process when neither
+    is), a SHA-256 plane stays on ``device``, as the reference's v2
+    planes have no mesh.
     """
     if hasher == "cpu":
         return _CpuPlane(algo)
@@ -517,6 +522,8 @@ def build_builtin_plane(hasher: str, algo: str, bucket: int, batch: int, device=
         raise ValueError(f"unknown hasher {hasher!r}")
     if algo == "sha256":
         return _Sha256CudaPlane(bucket, batch, device)
+    if mesh is not None:
+        return _Sha1DevicePlane(bucket, batch, mesh=mesh)
     return _Sha1DevicePlane(bucket, batch, device)
 
 
@@ -877,28 +884,46 @@ class _CpuPlane:
             return [h(slab.row(r)).digest() for r in rows]
 
 
+class _Events:
+    """The CUDA events of one launch's grid entries, waited on as one
+    (``_StagingSlots.checkin`` queries and synchronises it)."""
+
+    def __init__(self, events: list):
+        self.events = events
+
+    def query(self) -> bool:
+        return all(e.query() for e in self.events)
+
+    def synchronize(self) -> None:
+        for e in self.events:
+            e.synchronize()
+
+
 class _DevicePlane:
     """The launch machinery both device planes share: one staged batch
-    through the h2d / launch / digest stages of the pipeline ledger.
+    through the h2d / launch / digest stages of the pipeline ledger, its
+    rows split over the plane's grid entries in contiguous blocks
+    (:meth:`_blocks`; the SHA-256 plane has one entry).
 
     On a GPU (stream-ordered reuse, in place of the reference's donated
-    jit inputs):
+    jit inputs), each entry on its own copy and compute streams:
 
-    * **h2d** — the rows go to the card ``non_blocking`` on the plane's
-      copy stream, from the pinned staging slot; the span closes when the
-      copy's event completes, and the event is handed to the slot's pool
-      (``_StagingSlots.note_copy``), which checks it at check-in.
-    * **launch** — the kernel's stream waits on the copy's event, the
-      device tensors made on the copy stream are ``record_stream``-ed to
-      it, and the kernel is enqueued under ``_device_lock`` (held only
-      while enqueueing); the span closes on the kernel's completion
-      event. A launch first waits, outside its span, for the plane's
-      previous kernel, which the one stream would run first anyway, so
-      one plane's launch spans never overlap.
-    * **digest** — only the device→host copy of the digest words.
+    * **h2d** — each entry's rows go to its card ``non_blocking`` on its
+      copy stream, from the pinned staging slot; the span closes when
+      every entry's copy event completes, and the events are handed to
+      the slot's pool (``_StagingSlots.note_copy``), which checks them
+      at check-in.
+    * **launch** — each entry's compute stream waits on its copy's
+      event, the device tensors made on the copy stream are
+      ``record_stream``-ed to it, and the kernels are enqueued under
+      ``_device_lock`` (held only while enqueueing); the span closes on
+      the kernels' completion events. A launch first waits, outside its
+      span, for the plane's previous kernels, which the streams would
+      run first anyway, so one plane's launch spans never overlap.
+    * **digest** — only the device→host copies of the digest words.
 
     Batch N+1's copy, in the other pipelined worker thread, overlaps
-    batch N's kernel. PyTorch's current stream is per thread, so every
+    batch N's kernels. PyTorch's current stream is per thread, so every
     step names the plane's streams itself. Under load the host-clock
     spans also hold the waits of a busy host (the GIL among them); the
     card's own busy time comes from a ``torch.profiler`` trace. With
@@ -906,18 +931,17 @@ class _DevicePlane:
     synchronously.
     """
 
-    def __init__(self, device, lock_name: str):
+    def __init__(self, devices: list, lock_name: str):
         import torch
 
-        from torrent_tpu_torch.utils.device import resolve_device
-
-        self.device = resolve_device(device)
+        self.devices = devices
+        self.device = devices[0]
         self._cuda = self.device.type == "cuda"
         self._device_lock = named_lock(lock_name)
-        self._last_done = None  # completion event of the latest kernel
+        self._last_done = None  # completion events of the latest kernels
         if self._cuda:
-            self._copy_stream = torch.cuda.Stream(self.device)
-            self._compute_stream = torch.cuda.Stream(self.device)
+            self._copy_streams = [torch.cuda.Stream(d) for d in devices]
+            self._compute_streams = [torch.cuda.Stream(d) for d in devices]
 
     @staticmethod
     def launch_geometry(n_rows: int, bucket: int) -> tuple[int, int]:
@@ -927,64 +951,81 @@ class _DevicePlane:
 
         return n_rows, n_rows * padded_len_for(bucket)
 
-    def _upload(self, rows, stream):
-        """Device copy of the staged ``rows``, made on ``stream`` (None on
-        the CPU)."""
+    def _blocks(self, n_rows: int) -> list:
+        """``(entry, device, lo, hi)`` of each entry's rows of a launch."""
+        return [(0, self.device, 0, n_rows)]
+
+    def _upload(self, rows, streams) -> list:
+        """Each entry's device copy of its block of the staged ``rows``,
+        made on its stream of ``streams`` (None on the CPU)."""
         from torrent_tpu_torch.compat import to_device, to_device_on_stream
 
-        if stream is None:
-            return to_device(rows, self.device)
-        return to_device_on_stream(rows, stream)
+        if streams is None:
+            return [to_device(rows[lo:hi], dev) for _, dev, lo, hi in self._blocks(len(rows))]
+        return [to_device_on_stream(rows[lo:hi], streams[i]) for i, _, lo, hi in self._blocks(len(rows))]
 
-    def _kernel(self, data, nblocks):
+    def _kernel(self, datas: list, nblocks: list, streams) -> list:
+        """Each entry's digest words of its block, launched on its stream
+        of ``streams`` (None on the CPU)."""
         raise NotImplementedError
 
     def _launch_rows(self, rows, nblocks, nb: int, pool, slot_padded):
         """Hash the staged ``rows`` (a row prefix of ``slot_padded``, a
         buffer of ``pool``) with their block counts; returns the
         ``uint32[len(rows), W]`` digest words on the host."""
+        import numpy as np
         import torch
 
         from torrent_tpu_torch.compat import to_device, to_device_on_stream
         from torrent_tpu_torch.ops.sha1_torch import words_to_numpy
 
         led = pipeline_ledger()
+        blocks = self._blocks(len(rows))
         if not self._cuda:
             with led.track("h2d", nb):
-                data = self._upload(rows, None)
-                nbl = to_device(nblocks, self.device)
+                datas = self._upload(rows, None)
+                nbls = [to_device(nblocks[lo:hi], dev) for _, dev, lo, hi in blocks]
             with self._device_lock:
                 with led.track("launch", nb):
-                    words_dev = self._kernel(data, nbl)
+                    words = self._kernel(datas, nbls, None)
             with led.track("digest", nb):
-                return words_to_numpy(words_dev)
-        copy, compute = self._copy_stream, self._compute_stream
-        with torch.cuda.device(self.device):
-            with led.track("h2d", nb):
-                data = self._upload(rows, copy)
-                nbl = to_device_on_stream(nblocks, copy)
-                copied = torch.cuda.Event()
-                copied.record(copy)
-                pool.note_copy(slot_padded, copied)
-                copied.synchronize()
+                return words_to_numpy(words)
+        copies, computes = self._copy_streams, self._compute_streams
+        with led.track("h2d", nb):
+            datas = self._upload(rows, copies)
+            nbls, copied = [], []
+            for i, _, lo, hi in blocks:
+                nbls.append(to_device_on_stream(nblocks[lo:hi], copies[i]))
+                event = torch.cuda.Event()
+                event.record(copies[i])
+                copied.append(event)
+            pool.note_copy(slot_padded, _Events(copied))
+            for event in copied:
+                event.synchronize()
+        with self._device_lock:
+            prev = self._last_done
+        if prev is not None:
+            prev.synchronize()
+        with led.track("launch", nb):
             with self._device_lock:
-                prev = self._last_done
-            if prev is not None:
-                prev.synchronize()
-            with led.track("launch", nb):
-                with self._device_lock:
-                    with torch.cuda.stream(compute):
-                        compute.wait_event(copied)
-                        data.record_stream(compute)
-                        nbl.record_stream(compute)
-                        words_dev = self._kernel(data, nbl)
-                        done = torch.cuda.Event()
-                        done.record(compute)
-                    self._last_done = done
-                done.synchronize()
-            with led.track("digest", nb):
-                with torch.cuda.stream(compute):
-                    return words_to_numpy(words_dev)
+                for i, _, _, _ in blocks:
+                    computes[i].wait_event(copied[i])
+                    datas[i].record_stream(computes[i])
+                    nbls[i].record_stream(computes[i])
+                words = self._kernel(datas, nbls, computes)
+                done = []
+                for i, _, _, _ in blocks:
+                    event = torch.cuda.Event()
+                    event.record(computes[i])
+                    done.append(event)
+                done = self._last_done = _Events(done)
+            done.synchronize()
+        with led.track("digest", nb):
+            out = []
+            for (i, _, _, _), w in zip(blocks, words):
+                with torch.cuda.stream(computes[i]):
+                    out.append(words_to_numpy(w))
+            return np.concatenate(out)
 
     def run(self, payloads: list[bytes]) -> list[bytes]:
         from torrent_tpu_torch.ops.padding import words_to_digests
@@ -999,33 +1040,46 @@ class _DevicePlane:
             chunk = payloads[start : start + b]
             k = len(chunk)
             nb = sum(len(p) for p in chunk)
-            slot, padded, nblocks = self._slots.stage(chunk, k)
+            m = self._launch_rows_for(k)
+            slot, padded, nblocks = self._slots.stage(chunk, m)
             try:
                 words = self._launch_rows(
-                    padded[:k], nblocks, nb, self._slots, padded
+                    padded[:m], nblocks, nb, self._slots, padded
                 )
-                out.extend(words_to_digests(words))
+                out.extend(words_to_digests(words[:k]))
             finally:
                 self._slots.checkin(slot)
         return out
+
+    def _launch_rows_for(self, k: int) -> int:
+        """The rows a launch of ``k`` live rows stages (a grid's launches
+        pad to a multiple of its size with sentinel rows)."""
+        return k
 
     def run_staged(self, slab: StagedSlab, rows: list[int]) -> list[bytes]:
         """Zero-copy launch: the pre-staged slab IS the launch buffer —
         no ``_StagingSlots.stage`` copy; rows outside the ticket set are
         masked to ``nblocks=0``, and the launch ends at the last ticket
-        row."""
+        row, padded with masked rows to a multiple of the grid's size.
+        A slab whose rows do not split evenly over the grid takes the
+        copy path (the reference's mesh-divisibility rule)."""
+        import numpy as np
+
         from torrent_tpu_torch.ops.padding import padded_len_for, words_to_digests
 
         if (
             slab.padded.shape[1] != padded_len_for(self._bucket)
             or slab.rows_total > self._slots.rows
+            or slab.rows_total % len(self.devices)
         ):
-            # row width / size mismatch: copy path
+            # row width / size / grid-divisibility mismatch: copy path
             return self.run([SlotRow(slab, r) for r in rows])
         nb = int(slab.lengths[list(rows)].sum())
         nblocks = _masked_nblocks(slab, rows)
+        m = self._launch_rows_for(len(nblocks))
+        nblocks = np.concatenate([nblocks, np.zeros(m - len(nblocks), dtype=np.int32)])
         words = self._launch_rows(
-            slab.padded[: len(nblocks)], nblocks, nb, slab.pool, slab.padded
+            slab.padded[:m], nblocks, nb, slab.pool, slab.padded
         )
         return words_to_digests(words[rows])
 
@@ -1033,31 +1087,53 @@ class _DevicePlane:
 class _Sha1DevicePlane(_DevicePlane):
     """SHA-1 device plane: one ``GPUVerifier`` per bucket, over the
     hand-written Hopper kernel (``ops/sha1_cuda.py``) on a GPU and the
-    plain PyTorch SHA-1 on ``device="cpu"``.
+    plain PyTorch SHA-1 on ``device="cpu"``, spanning the scheduler's
+    grid (``parallel/mesh.py``): each launch's rows split in contiguous
+    blocks over the grid's entries, padded with sentinel rows to a
+    multiple of its size.
 
     Stages into reusable per-plane :class:`_StagingSlots` (pinned on a
     GPU) instead of ``hash_pieces`` (which allocates + zeroes a fresh
-    buffer every launch). The transfer and the kernel go through the
+    buffer every launch). The transfers and the kernels go through the
     verifier's ``upload_batch`` / ``digest_uploaded`` on the plane's
     streams (:class:`_DevicePlane`)."""
 
-    def __init__(self, bucket: int, batch: int, device=None):
+    def __init__(self, bucket: int, batch: int, device=None, mesh=None):
         from torrent_tpu_torch.models.verifier import GPUVerifier
 
-        super().__init__(device, "sched.sha1_plane._device_lock")
-        self._bucket = bucket
         self._verifier = GPUVerifier(
-            piece_length=bucket, batch_size=batch, device=self.device
+            piece_length=bucket, batch_size=batch, device=device, mesh=mesh
         )
+        super().__init__(self._verifier.devices, "sched.sha1_plane._device_lock")
+        self._bucket = bucket
         self._slots = _StagingSlots(
             self._verifier.batch_size, bucket, pinned=self._cuda
         )
 
-    def _upload(self, rows, stream):
-        return self._verifier.upload_batch(rows, stream=stream)
+    def launch_geometry(self, n_rows: int, bucket: int) -> tuple[int, int]:
+        """Launches of whole grid blocks: the rows round up to a multiple
+        of the grid's size (row-exact on one entry); staging charges the
+        padded row width."""
+        from torrent_tpu_torch.ops.padding import padded_len_for
 
-    def _kernel(self, data, nblocks):
-        return self._verifier.digest_uploaded(data, nblocks)
+        m = self._launch_rows_for(n_rows)
+        return m, m * padded_len_for(bucket)
+
+    def _launch_rows_for(self, k: int) -> int:
+        from torrent_tpu_torch.parallel.mesh import round_up_to_multiple
+
+        return round_up_to_multiple(k, len(self.devices))
+
+    def _blocks(self, n_rows: int) -> list:
+        from torrent_tpu_torch.parallel.mesh import row_blocks
+
+        return row_blocks(self._verifier.mesh, n_rows)
+
+    def _upload(self, rows, streams):
+        return self._verifier.upload_batch(rows, streams=streams)
+
+    def _kernel(self, datas, nblocks, streams):
+        return self._verifier.digest_uploaded(datas, nblocks, streams=streams)
 
 
 class _Sha256CudaPlane(_DevicePlane):
@@ -1070,14 +1146,21 @@ class _Sha256CudaPlane(_DevicePlane):
 
     def __init__(self, bucket: int, batch: int, device=None):
         from torrent_tpu_torch.ops.sha256_cuda import make_sha256_fn
+        from torrent_tpu_torch.utils.device import resolve_device
 
-        super().__init__(device, "sched.sha256_cuda_plane._device_lock")
+        super().__init__([resolve_device(device)], "sched.sha256_cuda_plane._device_lock")
         self._fn = make_sha256_fn(self.device)  # builds the kernel on a GPU
         self._bucket = bucket
         self._slots = _StagingSlots(batch, bucket, pinned=self._cuda)
 
-    def _kernel(self, data, nblocks):
-        return self._fn(data, nblocks)
+    def _kernel(self, datas, nblocks, streams):
+        import contextlib
+
+        import torch
+
+        ctx = torch.cuda.stream(streams[0]) if streams is not None else contextlib.nullcontext()
+        with ctx:
+            return [self._fn(datas[0], nblocks[0])]
 
 
 # ------------------------------------------------------------ scheduler
@@ -1092,19 +1175,25 @@ class HashPlaneScheduler:
         config: SchedulerConfig | None = None,
         hasher: str = "gpu",
         device=None,
+        devices=None,
+        mesh=None,
     ):
-        """``hasher="gpu"`` hashes on ``device``: None means the GPU, and
-        a host without one raises here; ``device="cpu"`` is the explicit
-        plain-PyTorch path the tests use. ``hasher="cpu"`` is hashlib
-        (``device`` is ignored). These are the port's hasher names, as in
-        ``parallel/verify.verify_pieces``."""
-        from torrent_tpu_torch.utils.device import resolve_device
+        """``hasher="gpu"`` hashes on a grid (``parallel/mesh.py``):
+        ``device`` alone, ``devices``, or this process's entries of
+        ``mesh``; with none of them every card of the process, and a host
+        without one raises here. ``device="cpu"`` is the explicit
+        plain-PyTorch path the tests use. The SHA-1 lanes span the grid,
+        the SHA-256 lanes run on its first entry (``device``).
+        ``hasher="cpu"`` is hashlib (the grid is ignored). These are the
+        port's hasher names, as in ``parallel/verify.verify_pieces``."""
+        from torrent_tpu_torch.parallel.mesh import local_grid
 
         if hasher not in ("gpu", "cpu"):
             raise ValueError(f"unknown hasher {hasher!r}: expected 'gpu' or 'cpu'")
         self.config = config or SchedulerConfig()
         self.hasher = hasher
-        self.device = resolve_device(device) if hasher == "gpu" else None
+        self.mesh = local_grid(device, devices, mesh) if hasher == "gpu" else None
+        self.device = self.mesh.entries[0] if hasher == "gpu" else None
         self._tenants: dict[str, _Tenant] = {}
         self._lanes: dict[tuple[str, int], _Lane] = {}
         self._queued_bytes = 0  # queued + in-flight payload bytes
@@ -1248,6 +1337,9 @@ class HashPlaneScheduler:
             pool = self._ingest_pools.get(key)
         if pool is None:
             _, target = self._lane_plan(algo, bucket)
+            if algo == "sha1" and self.mesh is not None:
+                # whole grid blocks, so a full slab launches zero-copy
+                target = -(-target // self.mesh.size) * self.mesh.size
             with self._ingest_lock:
                 pool = self._ingest_pools.setdefault(
                     key, _StagingSlots(target, bucket, pinned=self._on_card())
@@ -1793,7 +1885,8 @@ class HashPlaneScheduler:
         if cfg.plane_factory is not None:
             return cfg.plane_factory(lane.algo, lane.bucket, lane.target)
         return build_builtin_plane(
-            self.hasher, lane.algo, lane.bucket, lane.target, device=self.device
+            self.hasher, lane.algo, lane.bucket, lane.target,
+            device=self.device, mesh=self.mesh,
         )
 
     def _run_plane(

@@ -14,7 +14,9 @@ reference:
   the plain PyTorch planes) in place of ``cpu|tpu``;
 - ``--init-method tcp://HOST:PORT`` and ``--backend`` (``torch.distributed``,
   which enables the all-gather heartbeat) in place of ``--coordinator``;
-- no ``--cpu-devices`` (a JAX CPU-rig knob).
+- ``--cpu-devices K`` is a grid of K ``cpu`` entries for the SHA-1
+  planes (the counterpart of K virtual CPU devices), valid only with
+  ``--device cpu``.
 
 ``--num-processes/--process-id`` WITHOUT ``--init-method`` run over the
 shared-filesystem heartbeat (``--heartbeat-dir``) with no collective at
@@ -52,6 +54,9 @@ def add_arguments(sp: argparse.ArgumentParser) -> None:
                     "'cpu' runs the plain PyTorch planes)")
     sp.add_argument("--batch-target", type=int, default=256,
                     help="scheduler pieces-per-launch target")
+    sp.add_argument("--cpu-devices", type=int, default=0, metavar="K",
+                    help="hash SHA-1 over a grid of K cpu entries (needs --device cpu; "
+                    "CPU test rigs)")
     sp.add_argument("--init-method", metavar="tcp://HOST:PORT",
                     help="torch.distributed rendezvous (enables the all-gather heartbeat)")
     sp.add_argument("--backend", choices=("nccl", "gloo"), default=None,
@@ -102,6 +107,9 @@ async def fabric_verify(args) -> int:
     from torrent_tpu_torch.codec.metainfo import parse_metainfo
     from torrent_tpu_torch.storage.storage import FsStorage, Storage
 
+    if args.cpu_devices and (args.device is None or args.device.split(":")[0] != "cpu"):
+        print("error: --cpu-devices needs --device cpu", file=sys.stderr)
+        return 1
     nproc, pid = args.num_processes, args.process_id
     if (nproc is None) != (pid is None):
         print("error: --num-processes and --process-id go together", file=sys.stderr)
@@ -163,10 +171,11 @@ async def fabric_verify(args) -> int:
         except ValueError as e:
             print(f"error: bad --fault-plan: {e}", file=sys.stderr)
             return 2
+    grid = {"devices": ["cpu"] * args.cpu_devices} if args.cpu_devices else {"device": args.device}
     sched = await HashPlaneScheduler(
         SchedulerConfig(batch_target=args.batch_target, plane_factory=plane_factory),
         hasher=args.hasher,
-        device=args.device,
+        **grid,
     ).start()
     cfg = FabricConfig(
         heartbeat_interval=args.heartbeat_interval,
@@ -241,8 +250,11 @@ async def fabric_verify(args) -> int:
         },
         "fleet": executors[0].fleet_snapshot(),
         "sched": {
-            k: sched.metrics_snapshot()[k]
-            for k in ("launches", "cpu_fallback_launches", "launch_failures")
+            **{
+                k: sched.metrics_snapshot()[k]
+                for k in ("launches", "cpu_fallback_launches", "launch_failures")
+            },
+            "grid": sched.mesh.shape if sched.mesh is not None else None,
         },
     }
     line = json.dumps(payload)
