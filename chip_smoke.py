@@ -3577,6 +3577,7 @@ def main() -> dict:
     from torrent_tpu_torch.session.v2 import v2_session_info
     from torrent_tpu_torch.storage.storage import FsStorage, Storage
     from torrent_tpu_torch.tools.make_torrent import make_torrent
+    from torrent_tpu_torch.ops.work import SHA1_BLOCK_OPS, SHA256_BLOCK_OPS
     from torrent_tpu_torch.tools.time_merkle import bound_ms, hashlib_roots, smi, time_shapes
 
     sha256_rows = sha256_cuda.sha256_pieces_cuda
@@ -4118,7 +4119,7 @@ def main() -> dict:
         blocks = int(nb.to(torch.int64).sum())
         rows = nb.shape[0]
         # blocks read, counts read, words written
-        return bound_ms(sha1_cuda, blocks * 64 + rows * 4 + rows * 4 * words_out, blocks * ops_per_block)
+        return bound_ms(blocks * ops_per_block, blocks * 64 + rows * 4 + rows * 4 * words_out)
 
     def device_rows(rows: int, piece: int):
         """``rows`` seeded random pieces of ``piece`` bytes, made and padded
@@ -4146,27 +4147,27 @@ def main() -> dict:
         return ms
 
     ms_256 = time_kernel(sha1_cuda.sha1_pieces_cuda, d256, n256)
-    bound_256, by_256 = rows_bound(n256, 5, sha1_cuda.OPS_PER_BLOCK)
+    bound_256, by_256 = rows_bound(n256, 5, SHA1_BLOCK_OPS)
     del d256
     # 4096 x 1 MiB (every row a full 1 MiB piece)
     mib = 1 << 20
     rows = BATCH
     d1m, n1m = device_rows(rows, mib)
     ms_1m = timed_and_checked(d1m, n1m, mib, "1 MiB rows")
-    bound_1m, by_1m = rows_bound(n1m, 5, sha1_cuda.OPS_PER_BLOCK)
+    bound_1m, by_1m = rows_bound(n1m, 5, SHA1_BLOCK_OPS)
     del d1m
     # the batch sweep at 256 KiB: leading slices of one device batch
     d_sweep, n_sweep = device_rows(max(SWEEP_ROWS), PIECE)
     sweep = {}
     for r in SWEEP_ROWS:
         ms = timed_and_checked(d_sweep[:r], n_sweep[:r], PIECE, f"sweep {r} rows")
-        sweep[r] = (ms, *rows_bound(n_sweep[:r], 5, sha1_cuda.OPS_PER_BLOCK))
+        sweep[r] = (ms, *rows_bound(n_sweep[:r], 5, SHA1_BLOCK_OPS))
     del d_sweep
 
     ms_leaf = time_kernel(sha256_rows, d_leaf, n_leaf)
-    bound_leaf, by_leaf = rows_bound(n_leaf, 8, sha256_cuda.OPS_PER_BLOCK)
+    bound_leaf, by_leaf = rows_bound(n_leaf, 8, SHA256_BLOCK_OPS)
     ms_verify_leaf = time_kernel(sha256_rows, d_leaf[:VERIFY_LEAVES], n_leaf[:VERIFY_LEAVES])
-    bound_verify_leaf, by_verify_leaf = rows_bound(n_leaf[:VERIFY_LEAVES], 8, sha256_cuda.OPS_PER_BLOCK)
+    bound_verify_leaf, by_verify_leaf = rows_bound(n_leaf[:VERIFY_LEAVES], 8, SHA256_BLOCK_OPS)
     del d_leaf
     # the merkle reduction at the v2 paths' shapes and one pair level; the
     # JSON records take the device's own time (the host's launch work is

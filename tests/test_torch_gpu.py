@@ -1496,3 +1496,91 @@ def test_batched_recheck_example_on_card(cuda, capsys):
     assert gpu.splitlines()[-1] == "after corruption: 19/20 valid; bad pieces [14]"
     assert batched_recheck.main(["cpu"]) == 0
     assert gpu.replace("(gpu)", "(cpu)") == capsys.readouterr().out
+
+
+# ------------------------------------------------------------ the pipeline ledger's regions
+
+
+@pytest.mark.parametrize("version", ["v1", "v2"])
+def test_direct_recheck_names_its_stages_on_card(cuda, tmp_path, version):
+    """Both direct rechecks on the card charge the ledger's stage, h2d,
+    launch and digest once a batch, and under a profiler every batch is a
+    ``verify.<version>.batch`` region holding the hashing thread's
+    ``pipeline.*`` stages and its ``verify.wait_load``, beside the
+    kernels and copies of the card."""
+    import json
+
+    from torrent_tpu_torch.codec.metainfo import parse_metainfo
+    from torrent_tpu_torch.obs.ledger import pipeline_ledger
+    from torrent_tpu_torch.tools.make_torrent import make_torrent
+
+    if version == "v1":
+        plen, n_pieces, batch = 1 << 16, 40, 16
+        (tmp_path / "data.bin").write_bytes(np.random.default_rng(5).bytes(n_pieces * plen - 99))
+        info = parse_metainfo(
+            make_torrent(str(tmp_path / "data.bin"), "http://t.invalid/a", piece_length=plen, hasher="cpu")
+        ).info
+        run = lambda: verify_pieces(Storage(FsStorage(tmp_path), info), info, hasher="gpu",  # noqa: E731
+                                    batch_size=batch, io_threads=4)
+    else:
+        files = v2_corpus(tmp_path)
+        meta = build_v2(files, "payload", V2_PLEN, hasher="cpu")
+        info = v2_session_info(meta.info, meta.piece_layers)
+        batch = 3
+        by_pad = {}
+        for p in range(info.num_pieces):
+            by_pad[info.piece_pad_leaves[p]] = by_pad.get(info.piece_pad_leaves[p], 0) + 1
+        run = lambda: verify_pieces(Storage(FsStorage(tmp_path), info), info, hasher="gpu",  # noqa: E731
+                                    batch_size=batch)
+    assert run().all()  # builds and warms up
+    batches = -(-info.num_pieces // batch) if version == "v1" else sum(-(-c // batch) for c in by_pad.values())
+    led = pipeline_ledger()
+    before = led.snapshot()["stages"]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        assert run().all()
+    after = led.snapshot()["stages"]
+    for stage in ("stage", "h2d", "launch", "digest"):
+        assert after[stage]["ops"] - before.get(stage, {"ops": 0})["ops"] == batches, stage
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    names = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert names.count(f"verify.{version}.batch") == batches
+    for name in ("verify.wait_load", "pipeline.h2d", "pipeline.launch", "pipeline.digest"):
+        assert names.count(name) == batches, name
+    assert any(e.get("cat") == "kernel" for e in events)
+
+
+def test_v1_recheck_read_stays_within_the_wall_on_card(cuda, tmp_path):
+    """At the v1 recheck's shape (batches of 4096 x 256 KiB read in 4
+    stripes), each batch's stripes are one ledger ``read`` entry, over
+    their zero-fill, planning and preads: ``read`` stays within the
+    recheck's wall time."""
+    import time
+
+    from torrent_tpu_torch.codec.metainfo import parse_metainfo
+    from torrent_tpu_torch.obs.ledger import pipeline_ledger
+    from torrent_tpu_torch.tools.make_torrent import make_torrent
+
+    plen, batch = 256 << 10, 4096
+    chunk = np.random.default_rng(18).bytes(1024 * plen)
+    path = tmp_path / "data.bin"
+    with open(path, "wb") as f:
+        for _ in range(8):
+            f.write(chunk)
+        f.write(chunk[: plen // 2])  # a short last piece in a ragged third batch
+    info = parse_metainfo(make_torrent(str(path), "http://t.invalid/a", piece_length=plen, hasher="cpu")).info
+    storage = Storage(FsStorage(tmp_path), info)
+    verifier = GPUVerifier(piece_length=plen, batch_size=batch, device=cuda)
+    assert verifier.verify_storage(storage, info, io_threads=4).all()  # builds and warms up
+    led = pipeline_ledger()
+    before = led.snapshot()["stages"]["read"]
+    t0 = time.monotonic()
+    assert verifier.verify_storage(storage, info, io_threads=4).all()
+    wall = time.monotonic() - t0
+    after = led.snapshot()["stages"]["read"]
+    busy = after["busy_s"] - before["busy_s"]
+    print(f"v1 recheck {info.num_pieces} x 256 KiB: read busy_s={busy:.4f} wall_s={wall:.4f}")
+    assert after["ops"] - before["ops"] == 3
+    assert busy <= wall

@@ -249,6 +249,27 @@ DIVERGENCES["utils/trace.py"] = {
     # the port's profiler names its flush public (flush_trace)
     "<statement 1: ImportFrom>": "re-exports flush_trace, not _flush_trace",
 }
+# the ledger's stages are regions of a running torch.profiler's timeline,
+# and a read's wait for the pread pool's lock is not read time
+DIVERGENCES["obs/ledger.py"] = {
+    "_Tracked": "__slots__ gain _wait_s (a wait left out) and _region (the open profiler region)",
+    "_Tracked.__init__": "starts with no wait left out and no region",
+    "_Tracked.add": "takes wait_s, seconds of the body left out of its busy time",
+    "_Tracked.__enter__": "opens a pipeline.<stage> region while a profiler runs (one flag read otherwise)",
+    "_Tracked.__exit__": "busy time less the waits left out; closes its region",
+    "PipelineLedger.__init__": "keeps obs/profiler.py's annotate and profiling for its entries",
+}
+DIVERGENCES["storage/storage.py"] = {
+    "Storage.read_batch": (
+        "one ledger read entry a call, over its zero-fill, planning and "
+        "reads (the native pool's or the Python walk's); track=False leaves "
+        "the entry to a caller that reads in concurrent stripes"
+    ),
+    "Storage._native_read_batch": (
+        "takes the caller's ledger entry: adds the bytes read and leaves out "
+        "the wait for the pool's lock"
+    ),
+}
 
 class _Normalise(ast.NodeTransformer):
     """Drop docstrings and map the port's package name to the reference's."""

@@ -67,7 +67,7 @@ def python_read(storage, indices):
     lengths = np.empty(len(indices), dtype=np.int64)
     native = Storage._native_read_batch
     try:
-        Storage._native_read_batch = lambda self, i, o, l, rs=None: False
+        Storage._native_read_batch = lambda self, i, o, l, rs=None, tracked=None: False
         return storage.read_batch(indices, out=out)
     finally:
         Storage._native_read_batch = native

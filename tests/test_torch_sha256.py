@@ -30,7 +30,7 @@ from torrent_tpu.ops.sha256_jax import sha256_pieces_jax
 from torrent_tpu.ops.sha256_pallas import sha256_pieces_pallas
 from torrent_tpu_torch.models import merkle
 from torrent_tpu_torch.ops import padding
-from torrent_tpu_torch.ops import sha256_cuda
+from torrent_tpu_torch.ops import sha256_cuda, work
 from torrent_tpu_torch.ops.sha1_torch import words_to_numpy
 from torrent_tpu_torch.ops.sha256_cuda import make_sha256_fn, sha256_pairs_cuda, sha256_pieces_cuda
 from torrent_tpu_torch.ops.sha256_torch import IV, sha256_pairs_torch, sha256_pieces_torch
@@ -238,5 +238,5 @@ class TestWrappersOnCpu:
 
     def test_op_counts_are_the_stated_recount(self):
         # 16 byteswaps + 48 schedule words x 10 + 64 rounds x 14 + 8 adds
-        assert sha256_cuda.OPS_PER_BLOCK == 1400
-        assert sha256_cuda.OPS_PER_PAIR == 1384 + 904
+        assert work.SHA256_BLOCK_OPS == 1400
+        assert work.MERKLE_PAIR_OPS == 1384 + 904

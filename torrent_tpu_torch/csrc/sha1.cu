@@ -14,7 +14,7 @@
 // schedule is computed by other warps of the same CTA.
 //
 // What bounds it on an H100. Per 64-byte block SHA-1 needs 613 integer
-// instructions (ops/sha1_cuda.py OPS_PER_BLOCK: 16 byteswaps, 64 x 3 for
+// instructions (ops/work.py SHA1_BLOCK_OPS: 16 byteswaps, 64 x 3 for
 // the schedule, 80 x 5 for the rounds, 5 for the feed-forward) against 64
 // bytes of input: integer-ALU work, not memory traffic. Within a piece
 // the 80 rounds of every block form one serial chain, so the batch is the

@@ -37,7 +37,7 @@
 // which nvcc folds away.
 //
 // What bounds it on an H100. Per 64-byte block the chain needs about 1,400
-// integer instructions (ops/sha256_cuda.py OPS_PER_BLOCK): 16 byteswaps;
+// integer instructions (ops/work.py SHA256_BLOCK_OPS): 16 byteswaps;
 // 48 schedule words of 10 (sigma0 and sigma1 each two SHF, one SHR and one
 // LOP3, plus two IADD3); 64 rounds of 14 (Sigma0 and Sigma1 each three SHF
 // and one LOP3, ch and maj one LOP3 each, four adds); 8 feed-forward adds.
@@ -55,7 +55,7 @@
 // Row offsets are 64-bit.
 //
 // The merkle reduction is bound the same way: a pair is 2,288 integer
-// instructions (OPS_PER_PAIR) on 64 bytes in and 32 out. An SM sub-partition
+// instructions (MERKLE_PAIR_OPS) on 64 bytes in and 32 out. An SM sub-partition
 // has 16 INT32 lanes, so one warp issues an integer instruction every two
 // cycles at best: one pair level costs a warp at least 4,600 cycles whatever
 // else runs (tools/time_merkle.py measured about 4,900 a level, the slope

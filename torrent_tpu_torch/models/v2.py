@@ -50,6 +50,7 @@ from torrent_tpu_torch.models.merkle import (
     words32_to_digests,
     zero_chain,
 )
+from torrent_tpu_torch.obs.profiler import annotate
 from torrent_tpu_torch.ops.padding import pad_in_place, padded_len_for
 from torrent_tpu_torch.ops.sha256_cuda import make_sha256_fn
 from torrent_tpu_torch.utils.device import resolve_device
@@ -146,10 +147,11 @@ class _LeafPlane:
     """Staging for leaf launches of up to ``rows`` 16 KiB leaves.
 
     On a GPU the host rows and block counts are pinned; a launch is one
-    host→device copy of the staged rows, then the kernel, both on the
-    current stream, so a launch never waits for the one before it. The
-    host rows may be refilled as soon as the copy is done: every
-    ``stage_*`` call waits for it. On the CPU the plain version reads the
+    host→device copy of the staged rows (:meth:`copy_in`), then the
+    kernel, both on the current stream, so a launch never waits for the
+    one before it. The host rows may be refilled as soon as the copy is
+    done: every ``stage_*`` call waits for it (a ``verify.wait_host_free``
+    region while a profiler runs). On the CPU the plain version reads the
     staging rows in place and is done when ``launch`` returns.
     """
 
@@ -171,7 +173,8 @@ class _LeafPlane:
     def _wait_host_free(self) -> None:
         if self.device.type == "cuda":
             # an event never recorded is complete: the first stage never waits
-            self._copied.synchronize()
+            with annotate("verify.wait_host_free"):
+                self._copied.synchronize()
 
     def _pad(self, k: int, lengths: np.ndarray) -> None:
         self.padded[:k, BLOCK:] = 0  # stale 0x80/bit-length bytes of a reused row
@@ -222,24 +225,37 @@ class _LeafPlane:
         self.nblocks[:k][~live.reshape(-1)] = 0
         return k
 
-    def launch(self, k: int) -> torch.Tensor:
-        """Hash the first ``k`` staged rows; returns ``int32[k, 8]`` words
-        on the device (not synchronised)."""
-        if self.device.type == "cpu":
-            return self._sha256(self._host[:k], self._host_nblocks[:k])
+    def copy_in(self, k: int) -> int:
+        """Start the host→device copy of the first ``k`` staged rows and
+        their block counts; returns the bytes it moves (none on the CPU,
+        where the plain version reads the staging rows in place)."""
+        if self.device.type != "cuda":
+            return 0
         self._dev[:k].copy_(self._host[:k], non_blocking=True)
         self._dev_nblocks[:k].copy_(self._host_nblocks[:k], non_blocking=True)
         self._copied.record()
-        return self._sha256(self._dev[:k], self._dev_nblocks[:k])
+        return self._host[:k].nbytes + self._host_nblocks[:k].nbytes
+
+    def _rows(self, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The first ``k`` rows and block counts where the hash reads them."""
+        if self.device.type == "cpu":
+            return self._host[:k], self._host_nblocks[:k]
+        return self._dev[:k], self._dev_nblocks[:k]
+
+    def launch(self, k: int) -> torch.Tensor:
+        """Copy in and hash the first ``k`` staged rows; returns
+        ``int32[k, 8]`` words on the device (not synchronised)."""
+        self.copy_in(k)
+        return self._sha256(*self._rows(k))
 
     def launch_grid(self, m: int, pad: int) -> torch.Tensor:
-        """Hash a grid staged by :meth:`stage_pieces`; returns ``int32[m,
-        pad, 8]`` on the device with the sentinel slots zeroed (BEP 52
-        pads a merkle tree with zero leaves)."""
-        k = m * pad
-        words = self.launch(k)
-        nblocks = self._host_nblocks if self.device.type == "cpu" else self._dev_nblocks
-        return words.masked_fill_((nblocks[:k] == 0).unsqueeze(1), 0).view(m, pad, 8)
+        """Hash a grid staged by :meth:`stage_pieces` and copied in by
+        :meth:`copy_in`; returns ``int32[m, pad, 8]`` on the device with
+        the sentinel slots zeroed (BEP 52 pads a merkle tree with zero
+        leaves)."""
+        data, nblocks = self._rows(m * pad)
+        words = self._sha256(data, nblocks)
+        return words.masked_fill_((nblocks == 0).unsqueeze(1), 0).view(m, pad, 8)
 
 
 def _leaf_words_from_chunks(chunks, total: int, device=None) -> np.ndarray:

@@ -35,6 +35,8 @@ import torch
 
 from torrent_tpu_torch.codec.metainfo import InfoDict
 from torrent_tpu_torch.compat import to_device, to_device_on_stream
+from torrent_tpu_torch.obs.ledger import pipeline_ledger
+from torrent_tpu_torch.obs.profiler import annotate, maybe_profile_batch
 from torrent_tpu_torch.ops.padding import (
     alloc_padded,
     digests_to_words,
@@ -46,7 +48,7 @@ from torrent_tpu_torch.ops.padding import (
 from torrent_tpu_torch.ops.sha1_cuda import make_sha1_fn
 from torrent_tpu_torch.ops.sha1_torch import words_to_numpy
 from torrent_tpu_torch.parallel.mesh import local_grid, round_up_to_multiple, row_blocks
-from torrent_tpu_torch.parallel.verify import VerifyResult
+from torrent_tpu_torch.parallel.verify import VerifyResult, read_runs, striped
 from torrent_tpu_torch.storage.storage import Storage
 
 
@@ -54,7 +56,8 @@ class _CpuSlot:
     """Staging slot for ``device="cpu"`` entries: the plain SHA-1 reads
     each entry's block of the staging buffer in place and finishes
     before ``launch`` returns, so the buffer is free again as soon as
-    the result is taken."""
+    the result is taken. Charges the pipeline ledger as
+    :class:`_CudaSlot` does."""
 
     def __init__(self, b: int, plen: int, blocks: list):
         self.padded, _ = alloc_padded(b, plen)
@@ -69,15 +72,22 @@ class _CpuSlot:
     def launch(self, sha1, expected: list, g: int) -> None:
         """Hash batch ``g``: entry ``i`` compares its rows with its
         rows of ``expected[i]`` (every batch's, in order)."""
+        led = pipeline_ledger()
+        with led.track("h2d"):  # views of the buffer: nothing moves, no bytes
+            rows = [
+                (i, hi - lo, torch.from_numpy(self.padded[lo:hi]), torch.from_numpy(self.nblocks[lo:hi]))
+                for i, _, lo, hi in self._blocks
+            ]
         self.ok_dev = []
-        for i, _, lo, hi in self._blocks:
-            w = hi - lo
-            words = sha1(torch.from_numpy(self.padded[lo:hi]), torch.from_numpy(self.nblocks[lo:hi]))
-            self.ok_dev.append((words == expected[i][g * w : (g + 1) * w]).all(dim=1))
-        self._ok = torch.cat(self.ok_dev).numpy()
+        with led.track("launch", self.padded.nbytes):
+            for i, w, data, nblocks in rows:
+                words = sha1(data, nblocks)
+                self.ok_dev.append((words == expected[i][g * w : (g + 1) * w]).all(dim=1))
+            self._ok = torch.cat(self.ok_dev).numpy()
 
     def fetch_ok(self) -> np.ndarray:
-        return self._ok
+        with pipeline_ledger().track("digest", self._ok.size):
+            return self._ok
 
 
 class _CudaEntry:
@@ -105,6 +115,10 @@ class _CudaSlot:
     rows of the result read. ``ok_dev`` is the last launch's ``bool``
     rows on each entry's device, ordered on the entry's compute stream
     (the multi-process route counts them there).
+
+    ``launch`` charges the pipeline ledger's ``h2d`` (every entry's copy
+    enqueued) and ``launch`` (every entry's kernel and compare), and
+    ``fetch_ok`` its ``digest`` (the wait for the verdicts).
     """
 
     def __init__(self, b: int, plen: int, blocks: list, computes: list):
@@ -127,26 +141,31 @@ class _CudaSlot:
         """Hash batch ``g``: entry ``i`` copies and hashes its block and
         compares it with its rows of ``expected[i]`` (every batch's, in
         order), all on its own streams."""
+        led = pipeline_ledger()
+        with led.track("h2d", self.padded.nbytes):
+            for (_, _, lo, hi), e in zip(self._blocks, self._entries):
+                with torch.cuda.stream(e.copy):
+                    # the previous kernel on this slot still reads the device buffers
+                    e.copy.wait_event(e.compute_done)
+                    e.data.copy_(self._host_data[lo:hi], non_blocking=True)
+                    e.nblocks.copy_(self._host_nblocks[lo:hi], non_blocking=True)
+                    e.copy_done.record(e.copy)
         self.ok_dev = []
-        for (i, _, lo, hi), e in zip(self._blocks, self._entries):
-            w = hi - lo
-            with torch.cuda.stream(e.copy):
-                # the previous kernel on this slot still reads the device buffers
-                e.copy.wait_event(e.compute_done)
-                e.data.copy_(self._host_data[lo:hi], non_blocking=True)
-                e.nblocks.copy_(self._host_nblocks[lo:hi], non_blocking=True)
-                e.copy_done.record(e.copy)
-            with torch.cuda.stream(e.compute):
-                e.compute.wait_event(e.copy_done)
-                words = sha1(e.data, e.nblocks)
-                ok = (words == expected[i][g * w : (g + 1) * w]).all(dim=1)
-                self._host_ok[lo:hi].copy_(ok, non_blocking=True)
-                e.compute_done.record(e.compute)
-            self.ok_dev.append(ok)
+        with led.track("launch", self.padded.nbytes):
+            for (i, _, lo, hi), e in zip(self._blocks, self._entries):
+                w = hi - lo
+                with torch.cuda.stream(e.compute):
+                    e.compute.wait_event(e.copy_done)
+                    words = sha1(e.data, e.nblocks)
+                    ok = (words == expected[i][g * w : (g + 1) * w]).all(dim=1)
+                    self._host_ok[lo:hi].copy_(ok, non_blocking=True)
+                    e.compute_done.record(e.compute)
+                self.ok_dev.append(ok)
 
     def fetch_ok(self) -> np.ndarray:
-        for e in self._entries:
-            e.compute_done.synchronize()
+        with pipeline_ledger().track("digest", self._host_ok.numel()):
+            for e in self._entries:
+                e.compute_done.synchronize()
         return self._host_ok.numpy()
 
 
@@ -348,6 +367,13 @@ class GPUVerifier:
         reuse: a host slot is refilled only after every entry's copy
         completed, an entry's device buffers are overwritten only after
         its kernel completed.
+
+        The pipeline ledger (``obs/ledger.py``) is charged on the way:
+        ``read`` (one entry a batch, over its stripes: ``read_runs``) and
+        ``stage`` (the padding) on the loader thread, and the slots' ``h2d``, ``launch``
+        and ``digest`` on this one. While a profiler runs, a batch is a
+        ``verify.v1.batch`` region holding those stages' ``pipeline.*``
+        regions and this thread's ``verify.wait_load``.
         """
         if info.piece_length != self.piece_length:
             raise ValueError(
@@ -360,48 +386,40 @@ class GPUVerifier:
             return bitfield
         b = self.batch_size
         plen = self.piece_length
-        # expected digests go to the device once per torrent; the tail
-        # rows of the last batch compare against zeros and are dropped
-        expected = np.zeros((-(-n // b) * b, 5), dtype=np.uint32)
-        expected[:n] = digests_to_words(info.pieces)
-        expected_dev = self.expected_rows(expected)
-        slots = self.staging_slots()
+        with annotate("verify.setup"):
+            # expected digests go to the device once per torrent; the tail
+            # rows of the last batch compare against zeros and are dropped
+            expected = np.zeros((-(-n // b) * b, 5), dtype=np.uint32)
+            expected[:n] = digests_to_words(info.pieces)
+            expected_dev = self.expected_rows(expected)
+            slots = self.staging_slots()
         stripes = max(1, io_threads)
         io_pool = ThreadPoolExecutor(max_workers=stripes) if stripes > 1 else None
+        led = pipeline_ledger()
 
         def load(slot, start: int) -> int:
-            slot.wait_host_free()
+            with annotate("verify.wait_host_free"):
+                slot.wait_host_free()
             padded = slot.padded
             view = padded[:, :plen]
             idxs = range(start, min(start + b, n))
             k = len(idxs)
-            if io_pool is not None and k > stripes:
-                step = (k + stripes - 1) // stripes
-                futs = [
-                    io_pool.submit(
-                        storage.read_batch,
-                        idxs[s : s + step],
-                        out=view[s : min(s + step, k)],
-                    )
-                    for s in range(0, k, step)
-                ]
-                for f in futs:
-                    f.result()
-            else:
-                storage.read_batch(idxs, out=view[:k])
-            padded[:, plen:] = 0  # clear pad tail (stale 0x80/bitlen bytes)
-            if k < b:
-                padded[k:] = 0
+            read_runs(striped(storage, idxs, view, stripes), io_pool)
             lengths = np.zeros(b, dtype=np.int64)
             lengths[:k] = np.minimum(plen, info.length - np.arange(start, start + k) * plen)
-            slot.nblocks[:] = pad_in_place(padded, lengths)
-            slot.nblocks[k:] = 0  # sentinel rows
+            with led.track("stage", int(lengths.sum())):
+                padded[:, plen:] = 0  # clear pad tail (stale 0x80/bitlen bytes)
+                if k < b:
+                    padded[k:] = 0
+                slot.nblocks[:] = pad_in_place(padded, lengths)
+                slot.nblocks[k:] = 0  # sentinel rows
             return k
 
         # One batch in flight beyond the one being launched: the result of
         # batch i is read after batch i+1 is queued, so the kernel of i+1
         # overlaps the host's wait for i, and host memory stays bounded
-        # by the two slots.
+        # by the two slots. The last batch drains every result inside its
+        # own profiler region.
         inflight: deque = deque()
 
         def drain_one():
@@ -416,17 +434,17 @@ class GPUVerifier:
                 fut = loader.submit(load, slots[0], 0)
                 start, cur = 0, 0
                 while start < n:
-                    k = fut.result()
-                    next_start = start + b
-                    if next_start < n:
-                        fut = loader.submit(load, slots[1 - cur], next_start)
-                    slots[cur].launch(self._sha1, expected_dev, start // b)
-                    inflight.append((start, k, slots[cur]))
-                    while len(inflight) > 1:
-                        drain_one()
+                    with maybe_profile_batch("verify.v1.batch"):
+                        with annotate("verify.wait_load"):
+                            k = fut.result()
+                        next_start = start + b
+                        if next_start < n:
+                            fut = loader.submit(load, slots[1 - cur], next_start)
+                        slots[cur].launch(self._sha1, expected_dev, start // b)
+                        inflight.append((start, k, slots[cur]))
+                        while len(inflight) > (1 if next_start < n else 0):
+                            drain_one()
                     start, cur = next_start, 1 - cur
-                while inflight:
-                    drain_one()
         finally:
             if io_pool is not None:
                 io_pool.shutdown(wait=False)

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import time
 
 import numpy as np
 
@@ -75,7 +76,12 @@ class NativeIOEngine:
         """
         if out.dtype != np.uint8 or not out.flags["C_CONTIGUOUS"] or not out.flags["WRITEABLE"]:
             raise ValueError("out must be a writable C-contiguous uint8 array")
-        self.read_into(paths, segments, out.ctypes.data, out.size, keepalive=out)
+        # the pipeline ledger's "read" stage: one entry a call
+        from torrent_tpu_torch.obs.ledger import pipeline_ledger
+
+        with pipeline_ledger().track("read") as tracked:
+            self.read_into(paths, segments, out.ctypes.data, out.size, keepalive=out, tracked=tracked)
+            tracked.add(sum(int(seg[3]) for seg in segments))
 
     def read_into(
         self,
@@ -85,6 +91,7 @@ class NativeIOEngine:
         extent: int,
         keepalive=None,
         statuses: np.ndarray | None = None,
+        tracked=None,
     ) -> int:
         """Segment reads into raw memory ``[base_addr, base_addr+extent)``.
 
@@ -98,6 +105,11 @@ class NativeIOEngine:
         does NOT raise (mark-and-continue). Returns the engine rc (0 =
         every segment read fully); without ``statuses`` a nonzero rc
         raises :class:`NativeIOError`.
+
+        ``tracked``: the caller's pipeline-ledger entry (its ``read``),
+        from which the wait for this engine's lock is left out: the
+        caller charges the read, not the time another caller held the
+        pool.
         """
         seg_arr = np.asarray(segments, dtype=np.int64)
         if seg_arr.size == 0:
@@ -115,12 +127,10 @@ class NativeIOEngine:
             statuses = np.zeros(seg_arr.shape[0], dtype=np.int32)
         elif statuses.dtype != np.int32 or statuses.shape != (seg_arr.shape[0],):
             raise ValueError("statuses must be int32[n_segments]")
-        # pipeline-ledger "read" stage: the batched pread is the storage
-        # boundary of the read_batch paths (read_pieces_chunk instruments
-        # the per-piece Python path; the two never overlap)
-        from torrent_tpu_torch.obs.ledger import pipeline_ledger
-
-        with pipeline_ledger().track("read", int(seg_arr[:, 3].sum())), self._lock:
+        t_wait = time.monotonic()
+        with self._lock:
+            if tracked is not None:
+                tracked.add(0, time.monotonic() - t_wait)
             rc = self._lib.tt_io_read_batch(
                 self._handle,
                 path_arr,

@@ -26,13 +26,17 @@ Stage boundaries (instrumentation sites):
   this stage owns the wall and ``doctor --bottleneck`` / ``torrent-tpu
   replay`` can finally say so instead of blaming disk.
 * ``read``    — storage reads: ``parallel/verify.read_pieces_chunk``
-  (byte-path chunks + the fabric sentinel re-hash), the native
-  ``io_engine.read_into`` batch path, and the pure-Python
-  ``Storage.read_batch`` fallback walk (exactly one runs per row).
+  (byte-path chunks + the fabric sentinel re-hash), one entry a
+  ``Storage.read_batch`` call (its zero-fill, segment planning, and the
+  native pread pool or the pure-Python walk), and one a
+  ``NativeIOEngine.read_segments`` call (the v2 authoring stream); no
+  row is charged twice, and a wait for the engine's lock is left out.
 * ``stage``   — the staging-slot copy (``sched._StagingSlots.stage``).
   ZERO bytes on the zero-copy ingest path: ``read_pieces_into`` lands
   reads directly in the launch slab, so this stage only records for
-  byte-path and mixed-slab launches.
+  byte-path and mixed-slab launches. On the direct recheck paths, the
+  padding of a loaded batch (v1, on the loader thread) and the leaf
+  staging (v2).
 * ``h2d``     — host→device transfer: the explicit device put on every
   device plane (sha1 included — the zero-copy refactor split its
   previously fused ``digest_batch`` span); ``sched/faults.py``'s
@@ -86,29 +90,43 @@ class _Tracked:
 
     Bytes may be declared up front (``nbytes=``) or accumulated as the
     stage discovers them (``t.add(n)`` — the read loop knows its byte
-    count only piece by piece). The ledger lock is taken briefly at
-    enter and exit; the tracked body runs entirely outside it.
+    count only piece by piece). A wait inside the body that is not the
+    stage's own work (for a lock another entry holds) is left out of its
+    busy seconds with ``t.add(0, wait_s)``. While a ``torch.profiler``
+    runs, the entry is also a ``pipeline.<stage>`` region of its
+    timeline (``obs/profiler.py::annotate``); otherwise that costs one
+    flag read. The ledger lock is taken briefly at enter and exit; the
+    tracked body runs entirely outside it.
     """
 
-    __slots__ = ("_ledger", "stage", "nbytes", "_t0")
+    __slots__ = ("_ledger", "stage", "nbytes", "_t0", "_wait_s", "_region")
 
     def __init__(self, ledger: "PipelineLedger", stage: str, nbytes: int):
         self._ledger = ledger
         self.stage = stage
         self.nbytes = nbytes
         self._t0 = 0.0
+        self._wait_s = 0.0
+        self._region = None
 
-    def add(self, nbytes: int) -> None:
+    def add(self, nbytes: int, wait_s: float = 0.0) -> None:
         self.nbytes += nbytes
+        self._wait_s += wait_s
 
     def __enter__(self) -> "_Tracked":
+        if self._ledger._profiling():
+            self._region = self._ledger._annotate(f"pipeline.{self.stage}")
+            self._region.__enter__()
         self._t0 = time.monotonic()
         self._ledger._enter(self.stage, self._t0)
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
         t1 = time.monotonic()
-        self._ledger._exit(self.stage, self.nbytes, t1 - self._t0, t1)
+        self._ledger._exit(self.stage, self.nbytes, t1 - self._t0 - self._wait_s, t1)
+        if self._region is not None:
+            self._region.__exit__(exc_type, exc, tb)
+            self._region = None
 
 
 class _Stage:
@@ -128,6 +146,10 @@ class PipelineLedger:
     and fabric; tests may construct private ones."""
 
     def __init__(self):
+        from torrent_tpu_torch.obs.profiler import annotate, profiling
+
+        # every stage entry is a named region of a running profiler's timeline
+        self._annotate, self._profiling = annotate, profiling
         self._lock = named_lock("obs.ledger._lock")
         # dynamic lockset checking: the stage table + overlap integrator
         # is one cell guarded by _lock (stage entries arrive from worker

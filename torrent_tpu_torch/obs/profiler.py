@@ -4,8 +4,12 @@ The obs plane has three tiers: always-on latency histograms
 (``obs/hist``), per-ticket span tracing (``obs/tracer``), and — this
 module — a ``torch.profiler`` capture of the first N hash batches, the
 heavyweight tool for kernel-level work. Every batch is a named
-``torch.profiler.record_function`` region, so it shows in any profile
-the caller takes; with capture on, the first N batches are profiled
+``torch.profiler.record_function`` region, and so is every stage entry
+of the pipeline ledger (``pipeline.<stage>``) and every wait the direct
+recheck paths annotate (``verify.*``), so they show in any profile the
+caller takes: the card's idle gaps carry the program's own names on the
+trace's clock. With no profiler running a region costs one flag read
+(:func:`profiling`). With capture on, the first N batches are profiled
 (CPU and, on a GPU, CUDA activity) and written as one Chrome trace.
 
 Set ``TORRENT_TPU_PROFILE=/some/dir`` to capture;
@@ -30,6 +34,7 @@ import contextlib
 import json
 import os
 import queue
+import sys
 import threading
 
 from torrent_tpu_torch.utils.locks import named_lock
@@ -194,27 +199,48 @@ def device_busy(trace_path: str) -> dict:
     }
 
 
-@contextlib.contextmanager
+_autograd_profiler = None  # torch.autograd.profiler, once torch is loaded
+_NO_REGION = contextlib.nullcontext()
+
+
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` capture runs in this process, by
+    anyone: one flag read, and never an import of torch (a process that
+    has not loaded it runs no profiler)."""
+    global _autograd_profiler
+    flags = _autograd_profiler
+    if flags is None:
+        torch = sys.modules.get("torch")
+        flags = getattr(getattr(torch, "autograd", None), "profiler", None)
+        if flags is None:
+            return False
+        _autograd_profiler = flags
+    return flags._is_profiler_enabled
+
+
 def annotate(name: str):
-    """Named region in the profiler's timeline (recorded only while a
-    ``torch.profiler`` capture runs)."""
+    """Named region in the profiler's timeline: a
+    ``torch.profiler.record_function`` while a profiler runs, else a
+    context that does nothing (:func:`profiling`'s one flag read)."""
+    if not profiling():
+        return _NO_REGION
     import torch
 
-    with torch.profiler.record_function(name):
-        yield
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager
 def maybe_profile_batch(name: str):
-    """Profile the first N hash batches when TORRENT_TPU_PROFILE is set."""
+    """A batch: an :func:`annotate` region named ``name``, and the first
+    N of them profiled when TORRENT_TPU_PROFILE is set."""
     global _prof, _batches_seen, _trace_done
-    import torch
-
     trace_dir = profile_dir()
     if trace_dir is None or _trace_done:
-        with torch.profiler.record_function(name):
+        with annotate(name):
             yield
         return
+    import torch
+
     with _lock:
         if _prof is None and not _trace_done:
             try:
@@ -233,7 +259,7 @@ def maybe_profile_batch(name: str):
                 log.info("profiler capture started → %s", trace_dir)
         _batches_seen += 1
     try:
-        with torch.profiler.record_function(name):
+        with annotate(name):
             yield
     finally:
         with _lock:

@@ -3,7 +3,8 @@
 Replaces ``torrent_tpu/ops/sha1_pallas.py::_sha1_kernel`` (its
 ``pallas_call`` at sha1_pallas.py:243), with the contract of
 ``ops/sha1_torch.py``. The work is integer arithmetic
-(``OPS_PER_BLOCK`` integer instructions per 64-byte block), but up to
+(``ops/work.py``'s ``SHA1_BLOCK_OPS`` integer instructions per 64-byte
+block), but up to
 132 x 32 = 4,224 rows (the recheck's 4096, authoring's 256) there is at
 most one warp of pieces per SM, so a launch takes as long as one piece's
 serial chain of rounds; only beyond that does the card's integer rate
@@ -41,18 +42,6 @@ from torrent_tpu_torch.utils.locks import named_lock
 
 SOURCE = PACKAGE_DIR / "csrc" / "sha1.cu"
 LIBRARY = BUILD_DIR / "libtorrent_tpu_torch_sha1.so"
-
-# Integer instructions one 64-byte block needs at the least, counted as
-# Hopper issues them: 16 byteswaps (PRMT); 64 schedule words of two LOP3
-# (a 4-way XOR) and one rotate (SHF); 80 rounds of one rotate for a, one
-# LOP3 for ch/parity/maj, two IADD3 for the five-term sum and one rotate
-# for b; 5 feed-forward adds. 16 + 192 + 400 + 5.
-OPS_PER_BLOCK = 16 + 64 * 3 + 80 * 5 + 5
-# H100 SXM peak INT32 rate: 64 INT32 lanes per SM (Hopper white paper)
-# x 132 SMs x 1.98 GHz boost clock, at the full 700 W power limit.
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
-# H100 SXM HBM3 rate (NVIDIA data sheet).
-HBM_BYTES_PER_S = 3.35e12
 
 # The launch design's compile-time knobs (csrc/sha1.cu): keyword → (macro,
 # production value, short label of a variant's file name).

@@ -10,9 +10,9 @@ reduction of ``[B, 2^levels, 8]`` words to ``[B, 8]`` roots in one launch
 :func:`merkle_passes`), in place of the XLA program the reference runs for
 ``models/merkle.py::_merkle_reduce_fused``. :func:`sha256_pairs_cuda`, one
 merkle level, is its one-level case. Both kernels are integer-ALU bound on
-an H100 (``OPS_PER_BLOCK`` integer instructions per 64-byte block,
-``OPS_PER_PAIR`` per merkle pair); the design notes are at the top of
-``csrc/sha256.cu``.
+an H100 (``ops/work.py``: ``SHA256_BLOCK_OPS`` integer instructions per
+64-byte block, ``MERKLE_PAIR_OPS`` per merkle pair); the design notes are
+at the top of ``csrc/sha256.cu``.
 
 Build: CUDA C++ for ``sm_90a`` with a plain C interface, compiled by
 ``nvcc`` at first use into ``build/torrent_tpu_torch/`` and loaded with
@@ -52,24 +52,9 @@ from torrent_tpu_torch.utils.locks import named_lock
 SOURCE = PACKAGE_DIR / "csrc" / "sha256.cu"
 LIBRARY = BUILD_DIR / "libtorrent_tpu_torch_sha256.so"
 
-# Integer instructions one 64-byte block needs at the least, counted as
-# Hopper issues them: 16 byteswaps (PRMT); 48 schedule words of 10 (sigma0
-# and sigma1 each two rotates (SHF), one shift (SHR) and one 3-way XOR
-# (LOP3), plus two IADD3 for the four-term sum); 64 rounds of 14 (Sigma0
-# and Sigma1 each three SHF and one LOP3, ch and maj one LOP3 each, four
-# adds for t1, e and a); 8 feed-forward adds. 16 + 480 + 896 + 8.
-OPS_PER_BLOCK = 16 + 48 * 10 + 64 * 14 + 8
-# One merkle pair: the pair block without byteswaps, then the padding
-# block, whose schedule is a compile-time constant (rounds and adds only).
-OPS_PER_PAIR = (48 * 10 + 64 * 14 + 8) + (64 * 14 + 8)
 # The most pair levels one merkle launch reduces: a CTA of 8 warps takes
 # 512 nodes (csrc/sha256.cu kMerkleCap, checked when the library loads).
 MERKLE_CAP = 9
-# H100 SXM peak INT32 rate: 64 INT32 lanes per SM (Hopper white paper)
-# x 132 SMs x 1.98 GHz boost clock, at the full 700 W power limit.
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
-# H100 SXM HBM3 rate (NVIDIA data sheet).
-HBM_BYTES_PER_S = 3.35e12
 
 # The rows kernel's compile-time knob (csrc/sha256.cu): keyword → (macro,
 # production value, short label of a variant's file name).

@@ -29,7 +29,7 @@ import numpy as np
 
 from torrent_tpu_torch.codec.metainfo import InfoDict
 from torrent_tpu_torch.ops.padding import alloc_padded, digests_to_words, pad_in_place
-from torrent_tpu_torch.parallel.verify import verify_pieces_cpu
+from torrent_tpu_torch.parallel.verify import read_runs, verify_pieces_cpu
 from torrent_tpu_torch.storage.storage import Storage
 
 
@@ -132,7 +132,7 @@ def verify_library(
             lengths = np.zeros(b, dtype=np.int64)
             exp = np.zeros((b, 5), dtype=np.uint32)
             # contiguous per-torrent runs → one read_batch per run
-            futs = []
+            runs = []
             row = 0
             while row < k:
                 ti = rows[row][0]
@@ -141,17 +141,12 @@ def verify_library(
                     run_end += 1
                 idxs = [pi for _, pi in rows[row:run_end]]
                 storage, info = items[ti]
-                out_view = view[row:run_end]
-                if io_pool is not None:
-                    futs.append(io_pool.submit(storage.read_batch, idxs, out=out_view))
-                else:
-                    storage.read_batch(idxs, out=out_view)
+                runs.append((storage, idxs, view[row:run_end]))
                 for j, pi in enumerate(idxs):
                     lengths[row + j] = min(plen, info.length - pi * plen)
                     exp[row + j] = expected[ti][pi]
                 row = run_end
-            for f in futs:
-                f.result()
+            read_runs(runs, io_pool)
             padded[:, plen:] = 0
             if k < b:
                 padded[k:] = 0

@@ -239,6 +239,7 @@ def verify_storage_distributed(
     from torrent_tpu_torch.models.verifier import GPUVerifier
     from torrent_tpu_torch.ops.padding import digests_to_words, pad_in_place
     from torrent_tpu_torch.parallel.mesh import round_up_to_multiple, spanning_grid
+    from torrent_tpu_torch.parallel.verify import read_runs, striped
 
     nproc, pid = world()
     grid = spanning_grid(device, devices, mesh)
@@ -276,16 +277,7 @@ def verify_storage_distributed(
         idxs = range(lo, min(lo + L, n))
         k = len(idxs)
         if k:
-            if io_pool is not None and k > stripes:
-                step = (k + stripes - 1) // stripes
-                futs = [
-                    io_pool.submit(storage.read_batch, idxs[s : s + step], out=view[s : min(s + step, k)])
-                    for s in range(0, k, step)
-                ]
-                for f in futs:
-                    f.result()
-            else:
-                storage.read_batch(idxs, out=view[:k])
+            read_runs(striped(storage, idxs, view, stripes), io_pool)
         padded[:, plen:] = 0  # clear pad tail (stale 0x80/bitlen bytes)
         if k < L:
             padded[k:] = 0

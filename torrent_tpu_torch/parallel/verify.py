@@ -186,6 +186,14 @@ def verify_pieces_v2_gpu(
     digests there; only ``bool[m]`` comes back. The next batch is read
     on a host thread while the device works.
 
+    The pipeline ledger (``obs/ledger.py``) is charged on the way:
+    ``read`` on the loader thread (``Storage.read_batch``), and on this
+    thread each batch's ``stage``, ``h2d``, ``launch`` and ``digest``.
+    While a profiler runs, a batch is a ``verify.v2.batch`` region
+    holding those stages' ``pipeline.*`` regions and this thread's waits
+    (``verify.wait_load``, ``verify.wait_host_free``), and the set-up a
+    ``verify.setup`` one: the card's idle gaps carry their names.
+
     ``indices``: optional subset of piece indices to recheck; the
     returned bitfield is always full length, False outside the subset.
     Other keyword arguments of the v1 path (``io_threads``) are accepted
@@ -198,23 +206,28 @@ def verify_pieces_v2_gpu(
     from torrent_tpu_torch.compat import to_device
     from torrent_tpu_torch.models.merkle import _merkle_reduce_fused, digests_to_words32
     from torrent_tpu_torch.models.v2 import _host_copy, _LeafPlane
+    from torrent_tpu_torch.obs.ledger import pipeline_ledger
+    from torrent_tpu_torch.obs.profiler import annotate, maybe_profile_batch
 
     n = info.num_pieces
     bitfield = np.zeros(n, dtype=bool)
     if n == 0:
         return bitfield
-    todo = range(n) if indices is None else indices
-    by_pad: dict[int, list[int]] = {}
-    for idx in todo:
-        by_pad.setdefault(info.piece_pad_leaves[idx], []).append(idx)
-    n_todo = sum(len(v) for v in by_pad.values())
-    if n_todo == 0:
-        return bitfield
-    batch_size = max(1, int(batch_size))
-    plane = _LeafPlane(min(batch_size, n_todo) * max(by_pad), device)
-    plen = info.piece_length
-    bufs = [np.empty((min(batch_size, n_todo), plen), dtype=np.uint8) for _ in range(2)]
-    expected = digests_to_words32(info.pieces)
+    with annotate("verify.setup"):
+        todo = range(n) if indices is None else indices
+        by_pad: dict[int, list[int]] = {}
+        for idx in todo:
+            by_pad.setdefault(info.piece_pad_leaves[idx], []).append(idx)
+        n_todo = sum(len(v) for v in by_pad.values())
+        if n_todo == 0:
+            return bitfield
+        batch_size = max(1, int(batch_size))
+        plane = _LeafPlane(min(batch_size, n_todo) * max(by_pad), device)
+        plen = info.piece_length
+        bufs = [np.empty((min(batch_size, n_todo), plen), dtype=np.uint8) for _ in range(2)]
+        expected = digests_to_words32(info.pieces)
+    led = pipeline_ledger()
+    row_bytes = plane.padded.shape[1]
     done = 0
 
     def read(batch, buf):
@@ -222,31 +235,76 @@ def verify_pieces_v2_gpu(
 
     def finish(batch, ok_len, get_ok) -> None:
         nonlocal done
-        bitfield[batch] = ok_len & get_ok().astype(bool)
+        with led.track("digest", len(batch)):
+            ok = get_ok()
+        bitfield[batch] = ok_len & ok.astype(bool)
         done += len(batch)
         if progress_cb:
             progress_cb(done, n_todo)
 
+    # Each batch is one profiler region (the first N captured under
+    # TORRENT_TPU_PROFILE) holding this thread's stages: the wait for the
+    # loader's read, the staging, the copy, the launches and the fetch of
+    # the previous batch's verdicts (the last batch's own, too).
     with ThreadPoolExecutor(max_workers=1) as loader:
         for pad, group in by_pad.items():
             batches = [group[s : s + batch_size] for s in range(0, len(group), batch_size)]
             fut = loader.submit(read, batches[0], bufs[0])
             pending = None
             for bi, batch in enumerate(batches):
-                buf, lengths = fut.result()
-                if bi + 1 < len(batches):
-                    fut = loader.submit(read, batches[bi + 1], bufs[(bi + 1) % 2])
-                ok_len = lengths == np.asarray([info.piece_sizes[p] for p in batch])
-                m = len(batch)
-                plane.stage_pieces(buf, lengths, pad)
-                roots = _merkle_reduce_fused(plane.launch_grid(m, pad), pad.bit_length() - 1)
-                want = to_device(expected[batch], plane.device)
-                ok = (roots == want).all(dim=1).to(torch.int32)
-                if pending is not None:
-                    finish(*pending)
-                pending = (batch, ok_len, _host_copy(ok))
-            finish(*pending)
+                with maybe_profile_batch("verify.v2.batch"):
+                    with annotate("verify.wait_load"):
+                        buf, lengths = fut.result()
+                    if bi + 1 < len(batches):
+                        fut = loader.submit(read, batches[bi + 1], bufs[(bi + 1) % 2])
+                    ok_len = lengths == np.asarray([info.piece_sizes[p] for p in batch])
+                    m = len(batch)
+                    with led.track("stage", int(lengths.sum())):
+                        plane.stage_pieces(buf, lengths, pad)
+                    with led.track("h2d") as copied:
+                        copied.add(plane.copy_in(m * pad))
+                    with led.track("launch", m * pad * row_bytes):
+                        roots = _merkle_reduce_fused(plane.launch_grid(m, pad), pad.bit_length() - 1)
+                        want = to_device(expected[batch], plane.device)
+                        ok = (roots == want).all(dim=1).to(torch.int32)
+                        fetch = _host_copy(ok)
+                    if pending is not None:
+                        finish(*pending)
+                    pending = (batch, ok_len, fetch)
+                    if bi + 1 == len(batches):
+                        finish(*pending)
     return bitfield
+
+
+def striped(storage: Storage, idxs, out: np.ndarray, stripes: int) -> list:
+    """Pieces ``idxs`` of ``storage`` and the rows of ``out`` they fill,
+    as at most ``stripes`` contiguous ``(storage, indices, rows)`` runs
+    for :func:`read_runs` (one run when there are no more rows than
+    stripes)."""
+    k = len(idxs)
+    if k <= stripes:
+        return [(storage, idxs, out[:k])]
+    step = -(-k // stripes)
+    return [(storage, idxs[s : s + step], out[s : min(s + step, k)]) for s in range(0, k, step)]
+
+
+def read_runs(runs: list, pool=None) -> None:
+    """Fill each ``(storage, indices, rows)`` run with ``Storage.read_batch``.
+
+    Without ``pool``, or for one run, the calls run in turn, each its
+    own pipeline-ledger ``read`` entry. With it, they run at once on
+    ``pool`` as ONE ``read`` entry over all of them: each call's
+    zero-fill and planning run beside the others', so an entry a call
+    would add up to more busy seconds than the wall the read took."""
+    from torrent_tpu_torch.obs.ledger import pipeline_ledger
+
+    if pool is None or len(runs) < 2:
+        for storage, idxs, rows in runs:
+            storage.read_batch(idxs, out=rows)
+        return
+    with pipeline_ledger().track("read") as tracked:
+        futs = [pool.submit(storage.read_batch, idxs, out=rows, track=False) for storage, idxs, rows in runs]
+        tracked.add(sum(int(f.result()[1].sum()) for f in futs))
 
 
 def read_pieces_chunk(storage: Storage, info: InfoDict, idxs):

@@ -224,6 +224,7 @@ class Storage:
         out: np.ndarray | None = None,
         row_status: np.ndarray | None = None,
         zero_fill: bool = True,
+        track: bool = True,
     ) -> tuple[np.ndarray, np.ndarray]:
         """Read pieces ``indices`` into ``[n, piece_length]`` uint8 rows.
 
@@ -242,30 +243,31 @@ class Storage:
         pass it together with ``row_status``). BEP 47 pad spans are
         always written as zeros explicitly, so dirty reused buffers
         can't corrupt pad-covering pieces.
+
+        ``track=False``: the caller charges this call to the pipeline
+        ledger's ``read`` itself, as one entry over it and the calls that
+        run beside it (``parallel/verify.py::read_runs``).
         """
+        from torrent_tpu_torch.obs.ledger import pipeline_ledger
+
         indices = list(indices)
         n = len(indices)
         plen_max = self.info.piece_length
-        if out is None:
-            out = np.zeros((n, plen_max), dtype=np.uint8)
-        else:
-            if out.shape != (n, plen_max) or out.dtype != np.uint8:
-                raise StorageError("read_batch out buffer has wrong shape/dtype")
-            if zero_fill:
-                out[:] = 0
-        if row_status is not None:
-            if row_status.shape != (n,) or row_status.dtype != np.bool_:
-                raise StorageError("read_batch row_status must be bool[n]")
-            row_status[:] = True
-        lengths = np.empty(n, dtype=np.int64)
-        if self._native_read_batch(indices, out, lengths, row_status):
-            return out, lengths
-        # pure-Python fallback — the pipeline ledger's "read" boundary for
-        # backends without the native pread pool (the native path accounts
-        # inside io_engine.read_into; the two never both run for one row)
-        from torrent_tpu_torch.obs.ledger import pipeline_ledger
+        if out is not None and (out.shape != (n, plen_max) or out.dtype != np.uint8):
+            raise StorageError("read_batch out buffer has wrong shape/dtype")
+        if row_status is not None and (row_status.shape != (n,) or row_status.dtype != np.bool_):
+            raise StorageError("read_batch row_status must be bool[n]")
 
-        with pipeline_ledger().track("read") as tracked:
+        def fill(out, tracked):
+            if out is None:
+                out = np.zeros((n, plen_max), dtype=np.uint8)
+            elif zero_fill:
+                out[:] = 0
+            if row_status is not None:
+                row_status[:] = True
+            lengths = np.empty(n, dtype=np.int64)
+            if self._native_read_batch(indices, out, lengths, row_status, tracked):
+                return out, lengths
             for row, idx in enumerate(indices):
                 plen = piece_length(self.info, idx)
                 lengths[row] = plen
@@ -284,7 +286,8 @@ class Storage:
                         out[row, pos : pos + len(data)] = np.frombuffer(
                             data, dtype=np.uint8
                         )
-                        tracked.add(len(data))
+                        if tracked is not None:
+                            tracked.add(len(data))
                     except (StorageError, OSError):
                         # leave zeros; SHA1 mismatch will flag the piece.
                         # OSError too: a file torn mid-recheck can surface a
@@ -293,7 +296,15 @@ class Storage:
                         if row_status is not None:
                             row_status[row] = False
                     pos += chunk
-        return out, lengths
+            return out, lengths
+
+        if not track:
+            return fill(out, None)
+        # the pipeline ledger's "read" stage: one entry a call, over its
+        # zero-fill, segment planning and reads (the native pread pool, or
+        # the pure-Python walk in fill), less any wait for the pool's lock
+        with pipeline_ledger().track("read") as tracked:
+            return fill(out, tracked)
 
     def _native_read_batch(
         self,
@@ -301,6 +312,7 @@ class Storage:
         out: np.ndarray,
         lengths: np.ndarray,
         row_status: np.ndarray | None = None,
+        tracked=None,
     ) -> bool:
         """Batch read via the C++ pread pool (native/io_engine.cpp).
 
@@ -310,7 +322,10 @@ class Storage:
         ``row_status`` given, a failed/short/torn segment marks its row
         False instead of raising or zero-rebuilding — the preads land
         directly in the caller's (possibly row-strided) buffer and the
-        caller sentinels the failed rows.
+        caller sentinels the failed rows. ``tracked``: the caller's
+        pipeline-ledger ``read`` entry, which gets the bytes the pool
+        read (when this returns True) and leaves out the wait for the
+        pool's lock.
         """
         if not isinstance(self.method, FsStorage):
             return False
@@ -369,7 +384,7 @@ class Storage:
                 statuses = np.zeros(len(quads), dtype=np.int32)
                 rc = engine.read_into(
                     paths, quads, out.ctypes.data, extent,
-                    keepalive=out, statuses=statuses,
+                    keepalive=out, statuses=statuses, tracked=tracked,
                 )
                 if rc != 0 and (statuses == _errno.ENOENT).any():
                     # a file vanished between our stat() and the
@@ -382,13 +397,15 @@ class Storage:
                 for q in np.nonzero(statuses)[0]:
                     row_status[quad_rows[int(q)]] = False
             else:
-                engine.read_into(paths, quads, out.ctypes.data, extent, keepalive=out)
+                engine.read_into(paths, quads, out.ctypes.data, extent, keepalive=out, tracked=tracked)
         except (NativeIOError, ValueError):
             if row_status is None:
                 out[:] = 0  # a failed segment can leave partial bytes; the
                 return False  # Python fallback rebuilds from a clean buffer
             row_status[:] = True  # the fallback re-derives every row itself
             return False
+        if tracked is not None:
+            tracked.add(sum(q[3] for q in quads))
         return True
 
 

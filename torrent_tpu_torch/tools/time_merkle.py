@@ -36,8 +36,10 @@ end with the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
 import os
+import runpy
 import statistics
 import subprocess
 import sys
@@ -131,13 +133,18 @@ def _launch_count(sha256_cuda) -> int:
     return sum(f.launches for f in fns if f is not None)
 
 
-def bound_ms(rates, nbytes: int, ops: int) -> tuple[float, str]:
-    """The least time for ``ops`` integer instructions moving ``nbytes``,
-    at ``rates.INT32_OPS_PER_S`` and ``rates.HBM_BYTES_PER_S`` (a kernel's
-    wrapper module), and which of the two bounds it."""
-    t_ops = ops / rates.INT32_OPS_PER_S * 1e3
-    t_bytes = nbytes / rates.HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+@functools.cache
+def _work() -> dict:
+    """``ops/work.py`` of the checkout this file is in, loaded by path: the
+    bounds stay the same whichever ``--root`` is timed, and a root that
+    predates the module still times."""
+    return runpy.run_path(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "ops", "work.py"))
+
+
+def bound_ms(ops: int, nbytes: int) -> tuple[float, str]:
+    """The least time in ms for ``ops`` integer instructions moving
+    ``nbytes``, and which of the two bounds it (``ops/work.py``)."""
+    return _work()["bound_ms"](ops, nbytes)
 
 
 def time_shapes(reps: int = REPS, label: str = "") -> list[dict]:
@@ -166,7 +173,7 @@ def time_shapes(reps: int = REPS, label: str = "") -> list[dict]:
         if hashlib_roots(roots[:1, None].cpu().numpy()) != hashlib_roots(grid[:1].cpu().numpy()):
             raise RuntimeError(f"merkle {name}: root of tree 0 disagrees with hashlib")
         times = time_call(torch, lambda: merkle._merkle_reduce_fused(grid, levels), reps)
-        bound, by = bound_ms(sha256_cuda, b * l * 32 + b * 32, b * (l - 1) * sha256_cuda.OPS_PER_PAIR)
+        bound, by = bound_ms(b * (l - 1) * _work()["MERKLE_PAIR_OPS"], b * l * 32 + b * 32)
         rec = dict(name=name, shape=[b, l, 8], levels=levels, launches=launches, bound_ms=bound, bound_by=by, **times)
         records.append(rec)
         print(
@@ -194,7 +201,7 @@ def time_shapes(reps: int = REPS, label: str = "") -> list[dict]:
     pair_words = torch.randint(0, 256, (PAIRS * 64,), dtype=torch.uint8, device=dev, generator=g)
     pair_words = pair_words.view(torch.int32).view(PAIRS, 16)
     times = time_call(torch, lambda: merkle.sha256_pairs(pair_words), reps)
-    bound, by = bound_ms(sha256_cuda, PAIRS * (64 + 32), PAIRS * sha256_cuda.OPS_PER_PAIR)
+    bound, by = bound_ms(PAIRS * _work()["MERKLE_PAIR_OPS"], PAIRS * (64 + 32))
     records.append(dict(name="pair level", shape=[PAIRS, 16], levels=1, launches=1, bound_ms=bound, bound_by=by, **times))
     print(
         f"time: sha256_pairs{tag} {PAIRS} pairs synced_ms={times['synced_ms']:.4f} "

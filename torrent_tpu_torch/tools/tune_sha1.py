@@ -22,8 +22,8 @@ the time of one launch on the card:
   the message words, timed by CUDA events after a warm-up launch.
 
 Each variant prints one JSON line, ranked by time: its knobs and ``-D``
-flags, ms a launch, pieces/s, GB/s, the operations bound (``OPS_PER_BLOCK``
-integer instructions a 64-byte block over ``INT32_OPS_PER_S``) and the
+flags, ms a launch, pieces/s, GB/s, the operations bound (the integer
+instructions of a 64-byte block over the peak rate, ``ops/work.py``) and the
 share of it the launch reaches, its registers, spills and static shared
 memory from ptxas, its dynamic shared memory, and its build seconds. A
 ``best`` line ends the sweep with the winner's ``nvcc`` ``-D`` flags.
@@ -138,16 +138,17 @@ def time_launches(launch, bufs: list, nblocks, iters: int) -> float:
 
 
 def sweep(mod, grid: list[dict], *, msg_bytes: int, rows: int, iters: int, digest,
-          kernel: str, seed: int, extra=None) -> list[dict]:
+          kernel: str, seed: int, block_ops: int, extra=None) -> list[dict]:
     """Build, check and time every variant of ``mod`` (``ops.sha1_cuda``
-    or ``ops.sha256_cuda``) on ``rows`` random messages of ``msg_bytes``;
+    or ``ops.sha256_cuda``, whose 64-byte block takes ``block_ops``
+    integer instructions) on ``rows`` random messages of ``msg_bytes``;
     returns one record a variant, ranked by ms. ``extra(variant)`` adds
     fields to a variant's record."""
     import torch
 
     from torrent_tpu_torch.native.build import define_flags, knob_defines, ptxas_resources
     from torrent_tpu_torch.ops.sha1_torch import words_to_numpy
-    from torrent_tpu_torch.tools.time_merkle import bound_ms
+    from torrent_tpu_torch.ops.work import INT32_PEAK, bound_ms
     from torrent_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(None)  # the card, or DeviceUnavailable: no CPU mode
@@ -162,10 +163,10 @@ def sweep(mod, grid: list[dict], *, msg_bytes: int, rows: int, iters: int, diges
         buf[:, :words] ^= 0x5A5A0000 + k + 1
         bufs.append(buf)
     nblk = int(nblocks[0])
-    ops = rows * nblk * mod.OPS_PER_BLOCK
+    ops = rows * nblk * block_ops
     # each block read once, each count read once, each digest written once
-    bound, bound_by = bound_ms(mod, rows * (nblk * 64 + 4 + want.shape[1] * 4), ops)
-    ops_ms = ops / mod.INT32_OPS_PER_S * 1e3
+    bound, bound_by = bound_ms(ops, rows * (nblk * 64 + 4 + want.shape[1] * 4))
+    ops_ms = ops / INT32_PEAK * 1e3
     defaults = mod.check_knobs()
     records = []
     for variant in variants:
@@ -210,10 +211,11 @@ def run_sweep(piece_kb: int, batch: int, grid: list[dict], iters: int) -> list[d
     """The SHA-1 sweep at ``batch`` pieces of ``piece_kb`` KiB; returns the
     ranked records (see :func:`sweep`)."""
     from torrent_tpu_torch.ops import sha1_cuda
+    from torrent_tpu_torch.ops.work import SHA1_BLOCK_OPS
 
     return sweep(
         sha1_cuda, grid, msg_bytes=piece_kb * 1024, rows=batch, iters=iters,
-        digest=hashlib.sha1, kernel="sha1_rows_kernel", seed=20261017,
+        digest=hashlib.sha1, kernel="sha1_rows_kernel", seed=20261017, block_ops=SHA1_BLOCK_OPS,
         extra=lambda v: {"dynamic_smem_bytes": v.lib.tt_sha1_smem_bytes()},
     )
 

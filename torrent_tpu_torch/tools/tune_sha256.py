@@ -62,10 +62,12 @@ def run_sweep(block_kb: int, batch: int, grid: list[dict], iters: int) -> list[d
     """The SHA-256 sweep at ``batch`` leaves of ``block_kb`` KiB; returns
     the ranked records (see ``tune_sha1.sweep``)."""
     from torrent_tpu_torch.ops import sha256_cuda
+    from torrent_tpu_torch.ops.work import SHA256_BLOCK_OPS
 
     return sweep(
         sha256_cuda, grid, msg_bytes=block_kb * 1024, rows=batch, iters=iters,
         digest=hashlib.sha256, kernel="sha256_rows_kernel", seed=20261018,
+        block_ops=SHA256_BLOCK_OPS,
     )
 
 
