@@ -259,6 +259,10 @@ DIVERGENCES["obs/ledger.py"] = {
     "_Tracked.__exit__": "busy time less the waits left out; closes its region",
     "PipelineLedger.__init__": "keeps obs/profiler.py's annotate and profiling for its entries",
 }
+# the native pool's lock wait is a ledger counter (read_wait), not a stage
+DIVERGENCES["obs/attrib.py"] = {
+    "attribute": "a *_wait counter is never the limiting stage nor the demanded rate",
+}
 DIVERGENCES["storage/storage.py"] = {
     "Storage.read_batch": (
         "one ledger read entry a call, over its zero-fill, planning and "

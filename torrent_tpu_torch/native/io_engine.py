@@ -109,7 +109,11 @@ class NativeIOEngine:
         ``tracked``: the caller's pipeline-ledger entry (its ``read``),
         from which the wait for this engine's lock is left out: the
         caller charges the read, not the time another caller held the
-        pool.
+        pool. Every call, tracked or not (the stripes of a load, which
+        pass none), charges that wait to the ledger's ``read_wait``
+        counter: its seconds, the bytes the call then read, one op a
+        call, outside any occupancy window. While a profiler runs the
+        wait is also an ``io.wait_engine`` region.
         """
         seg_arr = np.asarray(segments, dtype=np.int64)
         if seg_arr.size == 0:
@@ -127,10 +131,17 @@ class NativeIOEngine:
             statuses = np.zeros(seg_arr.shape[0], dtype=np.int32)
         elif statuses.dtype != np.int32 or statuses.shape != (seg_arr.shape[0],):
             raise ValueError("statuses must be int32[n_segments]")
+        from torrent_tpu_torch.obs.ledger import pipeline_ledger
+        from torrent_tpu_torch.obs.profiler import annotate
+
         t_wait = time.monotonic()
+        region = annotate("io.wait_engine")
+        region.__enter__()
         with self._lock:
+            waited = time.monotonic() - t_wait
+            region.__exit__(None, None, None)
             if tracked is not None:
-                tracked.add(0, time.monotonic() - t_wait)
+                tracked.add(0, waited)
             rc = self._lib.tt_io_read_batch(
                 self._handle,
                 path_arr,
@@ -141,6 +152,7 @@ class NativeIOEngine:
                 statuses.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
             )
         del keepalive
+        pipeline_ledger().record("read_wait", int(seg_arr[statuses == 0, 3].sum()), waited)
         if rc != 0 and raise_on_error:
             bad = np.nonzero(statuses)[0]
             first = int(bad[0]) if bad.size else -1

@@ -18,7 +18,10 @@ System Accelerators" (PAPERS.md):
   is the headroom unlocked by fixing it.
 
 The **limiting stage** is the one with the highest utilization (ties
-broken toward more bytes — the stage doing real pipeline volume).
+broken toward more bytes — the stage doing real pipeline volume). A
+counter named ``<stage>_wait`` (the ledger's ``read_wait``) is a wait,
+not work: it is reported with the stages but is never the limiting
+stage, nor the rate the others demand.
 Attribution works on a single since-start snapshot or on the delta
 between two (``prev=``) — ``doctor --bottleneck`` and the bench
 harness use deltas so one process can attribute several runs.
@@ -70,7 +73,7 @@ def attribute(snapshot: dict, prev: dict | None = None) -> dict:
     when the interval recorded no activity (fresh ledger, idle plane).
     """
     stages, wall = _delta(snapshot, prev)
-    active = {n: s for n, s in stages.items() if s["ops"] > 0}
+    active = {n: s for n, s in stages.items() if s["ops"] > 0 and not n.endswith("_wait")}
     report_stages: dict[str, dict] = {}
     for name, s in stages.items():
         report_stages[name] = {

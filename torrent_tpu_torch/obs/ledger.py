@@ -30,7 +30,16 @@ Stage boundaries (instrumentation sites):
   ``Storage.read_batch`` call (its zero-fill, segment planning, and the
   native pread pool or the pure-Python walk), and one a
   ``NativeIOEngine.read_segments`` call (the v2 authoring stream); no
-  row is charged twice, and a wait for the engine's lock is left out.
+  row is charged twice, and a wait for the engine's lock is left out
+  of it: that wait is ``read_wait``'s.
+* ``read_wait`` — a counter, not a stage: the seconds each
+  ``NativeIOEngine.read_into`` call waited for the engine's lock,
+  whoever called it (the stripes of a v1 load, whose ``read`` entry is
+  their caller's, too), the bytes it then read, one op a call. Charged
+  by :meth:`PipelineLedger.record`, so it opens no occupancy window:
+  the overlap integral and the ``active`` counts never see it, and
+  ``obs/attrib.py`` never takes a ``*_wait`` counter for the limiting
+  stage (a wait is not work).
 * ``stage``   — the staging-slot copy (``sched._StagingSlots.stage``).
   ZERO bytes on the zero-copy ingest path: ``read_pieces_into`` lands
   reads directly in the launch slab, so this stage only records for

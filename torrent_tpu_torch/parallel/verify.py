@@ -295,7 +295,10 @@ def read_runs(runs: list, pool=None) -> None:
     own pipeline-ledger ``read`` entry. With it, they run at once on
     ``pool`` as ONE ``read`` entry over all of them: each call's
     zero-fill and planning run beside the others', so an entry a call
-    would add up to more busy seconds than the wall the read took."""
+    would add up to more busy seconds than the wall the read took. The
+    calls queue on the native pool's one lock; each call's wait there
+    is charged to the ledger's ``read_wait`` (``NativeIOEngine.read_into``),
+    so the counter shows how far the stripes serialise."""
     from torrent_tpu_torch.obs.ledger import pipeline_ledger
 
     if pool is None or len(runs) < 2:

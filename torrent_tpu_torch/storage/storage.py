@@ -246,7 +246,9 @@ class Storage:
 
         ``track=False``: the caller charges this call to the pipeline
         ledger's ``read`` itself, as one entry over it and the calls that
-        run beside it (``parallel/verify.py::read_runs``).
+        run beside it (``parallel/verify.py::read_runs``). Either way
+        the native pool charges its own lock wait to ``read_wait``
+        (``NativeIOEngine.read_into``), which ``read`` leaves out.
         """
         from torrent_tpu_torch.obs.ledger import pipeline_ledger
 
