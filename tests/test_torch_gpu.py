@@ -1584,3 +1584,90 @@ def test_v1_recheck_read_stays_within_the_wall_on_card(cuda, tmp_path):
     print(f"v1 recheck {info.num_pieces} x 256 KiB: read busy_s={busy:.4f} wall_s={wall:.4f}")
     assert after["ops"] - before["ops"] == 3
     assert busy <= wall
+
+
+@pytest.mark.parametrize("version", ["v1", "v2"])
+def test_direct_recheck_splits_its_copies_on_card(cuda, tmp_path, version):
+    """Both direct rechecks charge one copy counter a batch: its bytes are
+    the slot's data rows and block counts, its seconds the card's, and
+    with each read held 50 ms every copy but the last of a recheck is
+    enqueued while the next load runs. Each copy's placement and each
+    load's CPU are charged as this host allows."""
+    import time
+
+    from torrent_tpu_torch.codec.metainfo import parse_metainfo
+    from torrent_tpu_torch.obs import h2d
+    from torrent_tpu_torch.obs.ledger import pipeline_ledger
+    from torrent_tpu_torch.ops.padding import padded_len_for
+    from torrent_tpu_torch.tools.make_torrent import make_torrent
+
+    rng = np.random.default_rng(22)
+    if version == "v1":
+        plen, batch = 1 << 16, 16
+        (tmp_path / "data.bin").write_bytes(rng.bytes(40 * plen - 99))  # 3 batches
+        info = parse_metainfo(
+            make_torrent(str(tmp_path / "data.bin"), "http://t.invalid/a", piece_length=plen, hasher="cpu")
+        ).info
+        n_batches = 3
+        copied = n_batches * batch * (padded_len_for(plen) + 4)
+        kwargs = {"batch_size": batch, "io_threads": 4}
+    else:
+        path = tmp_path / "payload" / "a.bin"
+        path.parent.mkdir()
+        path.write_bytes(rng.bytes(7 * V2_PLEN + 100))  # 8 pieces of 4 leaves: batches of 3, 3, 2
+        meta = build_v2([(("a.bin",), str(path))], "payload", V2_PLEN, hasher="cpu")
+        info = v2_session_info(meta.info, meta.piece_layers)
+        n_batches, pad = 3, V2_PLEN // 16384
+        copied = info.num_pieces * pad * (padded_len_for(16384) + 4)
+        kwargs = {"batch_size": 3}
+
+    def storage():
+        s = Storage(FsStorage(tmp_path), info)
+        real = s.read_batch
+
+        def slow(*args, **kw):
+            time.sleep(0.05)
+            return real(*args, **kw)
+
+        s.read_batch = slow
+        return s
+
+    assert verify_pieces(storage(), info, hasher="gpu", **kwargs).all()  # builds and warms up
+    led = pipeline_ledger()
+    before = led.snapshot()["stages"]
+    assert verify_pieces(storage(), info, hasher="gpu", **kwargs).all()
+    after = led.snapshot()["stages"]
+    d = {k: {f: after[k][f] - before.get(k, {f: 0})[f] for f in ("busy_s", "bytes", "ops")} for k in after}
+    alone, beside = d["h2d_alone"], d["h2d_beside_load"]
+    print(f"{version}: alone {alone} beside {beside} local {d.get('h2d_local')} load_local {d.get('load_local')}")
+    assert (alone["ops"], beside["ops"]) == (1, n_batches - 1)
+    assert alone["bytes"] + beside["bytes"] == copied
+    assert alone["busy_s"] > 0 and beside["busy_s"] > 0
+    p = h2d.device_placement(cuda)
+    if p is None:  # no node tree shown to the process: no placement counted
+        assert d.get("h2d_local", {"ops": 0})["ops"] == d.get("load_local", {"ops": 0})["ops"] == 0
+    elif p.one_node:
+        assert d["h2d_local"] == {"busy_s": 0.0, "bytes": copied, "ops": n_batches}
+        assert d["load_local"]["ops"] == d["read"]["ops"] == n_batches
+
+
+def test_leaf_plane_copies_take_two_event_pairs_in_turn_on_card(cuda):
+    """A copy told of no load beside it leaves no ``last_copy``; the
+    others leave their pair, which the next copy does not take, and each
+    reads a positive time once the card is past it."""
+    from torrent_tpu_torch.models.v2 import _LeafPlane
+
+    plane = _LeafPlane(8, device=cuda)
+    k = plane.stage_bytes(np.random.default_rng(5).bytes(8 * 16384))
+    assert plane.copy_in(k) > 0 and plane.last_copy is None
+    plane.copy_in(k, beside=True)
+    first = plane.last_copy
+    plane.copy_in(k, beside=False)
+    second = plane.last_copy
+    assert not second.beside and {id(first.start), id(first.end)}.isdisjoint({id(second.start), id(second.end)})
+    torch.cuda.synchronize(cuda)
+    assert first.start.elapsed_time(first.end) > 0 and second.start.elapsed_time(second.end) > 0
+    plane.copy_in(k, beside=True)
+    assert (plane.last_copy.start, plane.last_copy.end) == (first.start, first.end)
+    plane.copy_in(k)
+    assert plane.last_copy is None

@@ -258,10 +258,12 @@ DIVERGENCES["obs/ledger.py"] = {
     "_Tracked.__enter__": "opens a pipeline.<stage> region while a profiler runs (one flag read otherwise)",
     "_Tracked.__exit__": "busy time less the waits left out; closes its region",
     "PipelineLedger.__init__": "keeps obs/profiler.py's annotate and profiling for its entries",
+    "PipelineLedger": "COUNTERS: the names recorded beside the stages (read_wait, the copy's counters)",
 }
-# the native pool's lock wait is a ledger counter (read_wait), not a stage
+# the native pool's lock wait (read_wait) and the copy's counters
+# (obs/h2d.py) are ledger counters, not stages
 DIVERGENCES["obs/attrib.py"] = {
-    "attribute": "a *_wait counter is never the limiting stage nor the demanded rate",
+    "attribute": "a counter of PipelineLedger.COUNTERS is never the limiting stage nor the demanded rate",
 }
 DIVERGENCES["storage/storage.py"] = {
     "Storage.read_batch": (

@@ -50,6 +50,7 @@ from torrent_tpu_torch.models.merkle import (
     words32_to_digests,
     zero_chain,
 )
+from torrent_tpu_torch.obs.h2d import Copy, SlabPages
 from torrent_tpu_torch.obs.profiler import annotate
 from torrent_tpu_torch.ops.padding import pad_in_place, padded_len_for
 from torrent_tpu_torch.ops.sha256_cuda import make_sha256_fn
@@ -153,6 +154,12 @@ class _LeafPlane:
     done: every ``stage_*`` call waits for it (a ``verify.wait_host_free``
     region while a profiler runs). On the CPU the plain version reads the
     staging rows in place and is done when ``launch`` returns.
+
+    Each copy ends on a timing event, of two pairs taken in turn so a
+    batch's pair outlives the next copy. A copy told whether a load runs
+    ``beside`` it also starts on one and leaves the pair in
+    :attr:`last_copy` (an ``obs/h2d.py`` ``Copy``), for its caller to
+    charge once it has waited for the batch.
     """
 
     def __init__(self, rows: int, device=None):
@@ -168,7 +175,13 @@ class _LeafPlane:
         if cuda:
             self._dev = torch.empty((rows, row_bytes), dtype=torch.uint8, device=self.device)
             self._dev_nblocks = torch.empty(rows, dtype=torch.int32, device=self.device)
-            self._copied = torch.cuda.Event()
+            self._events = [
+                (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(2)
+            ]
+            self._turn = 0
+            self._copied = self._events[1][1]
+            self._pages = SlabPages(self._host, self._host_nblocks)
+        self.last_copy: Copy | None = None
 
     def _wait_host_free(self) -> None:
         if self.device.type == "cuda":
@@ -225,16 +238,26 @@ class _LeafPlane:
         self.nblocks[:k][~live.reshape(-1)] = 0
         return k
 
-    def copy_in(self, k: int) -> int:
+    def copy_in(self, k: int, beside: bool | None = None) -> int:
         """Start the host→device copy of the first ``k`` staged rows and
         their block counts; returns the bytes it moves (none on the CPU,
-        where the plain version reads the staging rows in place)."""
+        where the plain version reads the staging rows in place).
+        ``beside``: whether a load runs beside the copy (None: no
+        :attr:`last_copy`)."""
         if self.device.type != "cuda":
             return 0
+        start, self._copied = self._events[self._turn]
+        self._turn ^= 1
+        if beside is not None:
+            start.record()
         self._dev[:k].copy_(self._host[:k], non_blocking=True)
         self._dev_nblocks[:k].copy_(self._host_nblocks[:k], non_blocking=True)
         self._copied.record()
-        return self._host[:k].nbytes + self._host_nblocks[:k].nbytes
+        nbytes = self._host[:k].nbytes + self._host_nblocks[:k].nbytes
+        self.last_copy = None
+        if beside is not None:
+            self.last_copy = Copy(start, self._copied, nbytes, self._pages.local_bytes(self.device, 0, k), beside)
+        return nbytes
 
     def _rows(self, k: int) -> tuple[torch.Tensor, torch.Tensor]:
         """The first ``k`` rows and block counts where the hash reads them."""

@@ -35,6 +35,7 @@ import torch
 
 from torrent_tpu_torch.codec.metainfo import InfoDict
 from torrent_tpu_torch.compat import to_device, to_device_on_stream
+from torrent_tpu_torch.obs.h2d import Copy, SlabPages, charge_load
 from torrent_tpu_torch.obs.ledger import pipeline_ledger
 from torrent_tpu_torch.obs.profiler import annotate, maybe_profile_batch
 from torrent_tpu_torch.ops.padding import (
@@ -69,9 +70,10 @@ class _CpuSlot:
     def wait_host_free(self) -> None:
         pass
 
-    def launch(self, sha1, expected: list, g: int) -> None:
+    def launch(self, sha1, expected: list, g: int, beside: bool | None = None) -> None:
         """Hash batch ``g``: entry ``i`` compares its rows with its
-        rows of ``expected[i]`` (every batch's, in order)."""
+        rows of ``expected[i]`` (every batch's, in order). Nothing is
+        copied, so ``beside`` charges nothing."""
         led = pipeline_ledger()
         with led.track("h2d"):  # views of the buffer: nothing moves, no bytes
             rows = [
@@ -92,14 +94,17 @@ class _CpuSlot:
 
 class _CudaEntry:
     """One grid entry's part of a :class:`_CudaSlot`: its device buffers,
-    its copy stream and the events that order them."""
+    its copy stream and the events that order them; ``copy_start`` and
+    ``copy_done`` also time its copy on the card."""
 
     def __init__(self, rows: int, padded_len: int, device: torch.device, compute):
+        self.device = device
         self.data = torch.empty((rows, padded_len), dtype=torch.uint8, device=device)
         self.nblocks = torch.empty(rows, dtype=torch.int32, device=device)
         self.copy = torch.cuda.Stream(device=device)
         self.compute = compute
-        self.copy_done = torch.cuda.Event()
+        self.copy_start = torch.cuda.Event(enable_timing=True)
+        self.copy_done = torch.cuda.Event(enable_timing=True)
         self.compute_done = torch.cuda.Event()
 
 
@@ -118,7 +123,11 @@ class _CudaSlot:
 
     ``launch`` charges the pipeline ledger's ``h2d`` (every entry's copy
     enqueued) and ``launch`` (every entry's kernel and compare), and
-    ``fetch_ok`` its ``digest`` (the wait for the verdicts).
+    ``fetch_ok`` its ``digest`` (the wait for the verdicts). A launch
+    told whether a load runs ``beside`` it has ``fetch_ok`` charge each
+    entry's copy, as the card timed it, to ``h2d_beside_load`` or
+    ``h2d_alone``, and its bytes on the card's node to ``h2d_local``
+    (``obs/h2d.py``).
     """
 
     def __init__(self, b: int, plen: int, blocks: list, computes: list):
@@ -131,22 +140,27 @@ class _CudaSlot:
         self._blocks = blocks
         self._entries = [_CudaEntry(hi - lo, padded_len, dev, computes[i]) for i, dev, lo, hi in blocks]
         self.ok_dev = None
+        self._beside: bool | None = None
+        self._pages = SlabPages(self._host_data, self._host_nblocks)
 
     def wait_host_free(self) -> None:
         # an event never recorded is complete: the first fill never waits
         for e in self._entries:
             e.copy_done.synchronize()
 
-    def launch(self, sha1, expected: list, g: int) -> None:
+    def launch(self, sha1, expected: list, g: int, beside: bool | None = None) -> None:
         """Hash batch ``g``: entry ``i`` copies and hashes its block and
         compares it with its rows of ``expected[i]`` (every batch's, in
-        order), all on its own streams."""
+        order), all on its own streams. ``beside``: whether a load runs
+        beside the copies (None: charge neither copy counter)."""
         led = pipeline_ledger()
+        self._beside = beside
         with led.track("h2d", self.padded.nbytes):
             for (_, _, lo, hi), e in zip(self._blocks, self._entries):
                 with torch.cuda.stream(e.copy):
                     # the previous kernel on this slot still reads the device buffers
                     e.copy.wait_event(e.compute_done)
+                    e.copy_start.record(e.copy)
                     e.data.copy_(self._host_data[lo:hi], non_blocking=True)
                     e.nblocks.copy_(self._host_nblocks[lo:hi], non_blocking=True)
                     e.copy_done.record(e.copy)
@@ -166,7 +180,17 @@ class _CudaSlot:
         with pipeline_ledger().track("digest", self._host_ok.numel()):
             for e in self._entries:
                 e.compute_done.synchronize()
+        if self._beside is not None:
+            self._charge_copies(self._beside)
+            self._beside = None
         return self._host_ok.numpy()
+
+    def _charge_copies(self, beside: bool) -> None:
+        """Each entry's completed copy to the ledger's copy counters."""
+        for (_, _, lo, hi), e in zip(self._blocks, self._entries):
+            nbytes = self._host_data[lo:hi].nbytes + self._host_nblocks[lo:hi].nbytes
+            local = self._pages.local_bytes(e.device, lo, hi)
+            Copy(e.copy_start, e.copy_done, nbytes, local, beside).charge()
 
 
 class GPUVerifier:
@@ -398,6 +422,7 @@ class GPUVerifier:
         led = pipeline_ledger()
 
         def load(slot, start: int) -> int:
+            charge_load(self.device)
             with annotate("verify.wait_host_free"):
                 slot.wait_host_free()
             padded = slot.padded
@@ -440,7 +465,8 @@ class GPUVerifier:
                         next_start = start + b
                         if next_start < n:
                             fut = loader.submit(load, slots[1 - cur], next_start)
-                        slots[cur].launch(self._sha1, expected_dev, start // b)
+                        # the last batch's copy runs alone: its load is done
+                        slots[cur].launch(self._sha1, expected_dev, start // b, beside=not fut.done())
                         inflight.append((start, k, slots[cur]))
                         while len(inflight) > (1 if next_start < n else 0):
                             drain_one()

@@ -19,9 +19,10 @@ System Accelerators" (PAPERS.md):
 
 The **limiting stage** is the one with the highest utilization (ties
 broken toward more bytes — the stage doing real pipeline volume). A
-counter named ``<stage>_wait`` (the ledger's ``read_wait``) is a wait,
-not work: it is reported with the stages but is never the limiting
-stage, nor the rate the others demand.
+counter (``PipelineLedger.COUNTERS``: the ledger's ``read_wait``, a
+wait, and the copy's counters of ``obs/h2d.py``, work a stage already
+holds) is reported with the stages but is never the limiting stage, nor
+the rate the others demand.
 Attribution works on a single since-start snapshot or on the delta
 between two (``prev=``) — ``doctor --bottleneck`` and the bench
 harness use deltas so one process can attribute several runs.
@@ -72,8 +73,10 @@ def attribute(snapshot: dict, prev: dict | None = None) -> dict:
     two). Always returns a complete dict; ``bottleneck`` is ``None``
     when the interval recorded no activity (fresh ledger, idle plane).
     """
+    from torrent_tpu_torch.obs.ledger import PipelineLedger
+
     stages, wall = _delta(snapshot, prev)
-    active = {n: s for n, s in stages.items() if s["ops"] > 0 and not n.endswith("_wait")}
+    active = {n: s for n, s in stages.items() if s["ops"] > 0 and n not in PipelineLedger.COUNTERS}
     report_stages: dict[str, dict] = {}
     for name, s in stages.items():
         report_stages[name] = {

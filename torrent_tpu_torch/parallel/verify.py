@@ -188,7 +188,11 @@ def verify_pieces_v2_gpu(
 
     The pipeline ledger (``obs/ledger.py``) is charged on the way:
     ``read`` on the loader thread (``Storage.read_batch``), and on this
-    thread each batch's ``stage``, ``h2d``, ``launch`` and ``digest``.
+    thread each batch's ``stage``, ``h2d``, ``launch`` and ``digest``;
+    after the digest, the batch's copy as the card timed it
+    (``h2d_beside_load`` while the next read ran as it was enqueued, else
+    ``h2d_alone``) and its bytes on the card's node (``h2d_local``), and
+    at each read's start ``load_local`` (``obs/h2d.py``).
     While a profiler runs, a batch is a ``verify.v2.batch`` region
     holding those stages' ``pipeline.*`` regions and this thread's waits
     (``verify.wait_load``, ``verify.wait_host_free``), and the set-up a
@@ -206,6 +210,7 @@ def verify_pieces_v2_gpu(
     from torrent_tpu_torch.compat import to_device
     from torrent_tpu_torch.models.merkle import _merkle_reduce_fused, digests_to_words32
     from torrent_tpu_torch.models.v2 import _host_copy, _LeafPlane
+    from torrent_tpu_torch.obs.h2d import charge_load
     from torrent_tpu_torch.obs.ledger import pipeline_ledger
     from torrent_tpu_torch.obs.profiler import annotate, maybe_profile_batch
 
@@ -231,12 +236,15 @@ def verify_pieces_v2_gpu(
     done = 0
 
     def read(batch, buf):
+        charge_load(plane.device)
         return storage.read_batch(batch, out=buf[: len(batch)])
 
-    def finish(batch, ok_len, get_ok) -> None:
+    def finish(batch, ok_len, get_ok, copy) -> None:
         nonlocal done
         with led.track("digest", len(batch)):
             ok = get_ok()
+        if copy is not None:
+            copy.charge(led)
         bitfield[batch] = ok_len & ok.astype(bool)
         done += len(batch)
         if progress_cb:
@@ -262,7 +270,8 @@ def verify_pieces_v2_gpu(
                     with led.track("stage", int(lengths.sum())):
                         plane.stage_pieces(buf, lengths, pad)
                     with led.track("h2d") as copied:
-                        copied.add(plane.copy_in(m * pad))
+                        # a group's last copy has no read left beside it
+                        copied.add(plane.copy_in(m * pad, beside=not fut.done()))
                     with led.track("launch", m * pad * row_bytes):
                         roots = _merkle_reduce_fused(plane.launch_grid(m, pad), pad.bit_length() - 1)
                         want = to_device(expected[batch], plane.device)
@@ -270,7 +279,7 @@ def verify_pieces_v2_gpu(
                         fetch = _host_copy(ok)
                     if pending is not None:
                         finish(*pending)
-                    pending = (batch, ok_len, fetch)
+                    pending = (batch, ok_len, fetch, plane.last_copy)
                     if bi + 1 == len(batches):
                         finish(*pending)
     return bitfield
