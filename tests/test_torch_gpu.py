@@ -1591,12 +1591,10 @@ def test_direct_recheck_splits_its_copies_on_card(cuda, tmp_path, version):
     """Both direct rechecks charge one copy counter a batch: its bytes are
     the slot's data rows and block counts, its seconds the card's, and
     with each read held 50 ms every copy but the last of a recheck is
-    enqueued while the next load runs. Each copy's placement and each
-    load's CPU are charged as this host allows."""
+    enqueued while the next load runs."""
     import time
 
     from torrent_tpu_torch.codec.metainfo import parse_metainfo
-    from torrent_tpu_torch.obs import h2d
     from torrent_tpu_torch.obs.ledger import pipeline_ledger
     from torrent_tpu_torch.ops.padding import padded_len_for
     from torrent_tpu_torch.tools.make_torrent import make_torrent
@@ -1639,16 +1637,61 @@ def test_direct_recheck_splits_its_copies_on_card(cuda, tmp_path, version):
     after = led.snapshot()["stages"]
     d = {k: {f: after[k][f] - before.get(k, {f: 0})[f] for f in ("busy_s", "bytes", "ops")} for k in after}
     alone, beside = d["h2d_alone"], d["h2d_beside_load"]
-    print(f"{version}: alone {alone} beside {beside} local {d.get('h2d_local')} load_local {d.get('load_local')}")
+    print(f"{version}: alone {alone} beside {beside}")
     assert (alone["ops"], beside["ops"]) == (1, n_batches - 1)
     assert alone["bytes"] + beside["bytes"] == copied
     assert alone["busy_s"] > 0 and beside["busy_s"] > 0
-    p = h2d.device_placement(cuda)
-    if p is None:  # no node tree shown to the process: no placement counted
-        assert d.get("h2d_local", {"ops": 0})["ops"] == d.get("load_local", {"ops": 0})["ops"] == 0
-    elif p.one_node:
-        assert d["h2d_local"] == {"busy_s": 0.0, "bytes": copied, "ops": n_batches}
-        assert d["load_local"]["ops"] == d["read"]["ops"] == n_batches
+
+
+@pytest.mark.parametrize("route", ["distributed", "bulk"])
+def test_rank_and_library_routes_run_the_recheck_loop_on_card(cuda, tmp_path, route):
+    """The multi-process route at world size 1 and the library route run
+    the v1 recheck loop on the card: the direct route's bitfield with one
+    flipped piece, each stage once a batch, and one copy counter a batch,
+    every copy but the last enqueued beside a load (each read held 50 ms)."""
+    import time
+
+    from torrent_tpu_torch.codec.metainfo import parse_metainfo
+    from torrent_tpu_torch.obs.ledger import pipeline_ledger
+    from torrent_tpu_torch.ops.padding import padded_len_for
+    from torrent_tpu_torch.parallel.bulk import verify_library
+    from torrent_tpu_torch.parallel.distributed import verify_storage_distributed
+    from torrent_tpu_torch.tools.make_torrent import make_torrent
+
+    plen, batch, n_batches = 1 << 16, 16, 3
+    path = tmp_path / "data.bin"
+    payload = bytearray(np.random.default_rng(23).bytes(40 * plen - 99))
+    path.write_bytes(payload)
+    info = parse_metainfo(make_torrent(str(path), "http://t.invalid/a", piece_length=plen, hasher="cpu")).info
+    payload[17 * plen + 5] ^= 0xFF
+    path.write_bytes(payload)
+    want = [p != 17 for p in range(info.num_pieces)]
+
+    def run():
+        storage = Storage(FsStorage(tmp_path), info)
+        real = storage.read_batch
+
+        def slow(*args, **kw):
+            time.sleep(0.05)
+            return real(*args, **kw)
+
+        storage.read_batch = slow
+        if route == "distributed":
+            return verify_storage_distributed(storage, info, batch_size=batch, device=cuda, io_threads=4)[0]
+        return verify_library([(storage, info)], batch_size=batch, device=cuda, io_threads=4).bitfields[0]
+
+    assert run().tolist() == want  # builds and warms up
+    led = pipeline_ledger()
+    before = led.snapshot()["stages"]
+    got = run()
+    after = led.snapshot()["stages"]
+    direct = GPUVerifier(piece_length=plen, batch_size=batch, device=cuda)
+    assert got.tolist() == direct.verify_storage(Storage(FsStorage(tmp_path), info), info).tolist() == want
+    d = {k: {f: after[k][f] - before.get(k, {f: 0})[f] for f in ("bytes", "ops")} for k in after}
+    for stage in ("stage", "h2d", "launch", "digest"):
+        assert d[stage]["ops"] == n_batches, stage
+    assert (d["h2d_alone"]["ops"], d["h2d_beside_load"]["ops"]) == (1, n_batches - 1)
+    assert d["h2d_alone"]["bytes"] + d["h2d_beside_load"]["bytes"] == n_batches * batch * (padded_len_for(plen) + 4)
 
 
 def test_leaf_plane_copies_take_two_event_pairs_in_turn_on_card(cuda):

@@ -1,8 +1,10 @@
-"""The pipeline ledger's stages on the direct recheck paths, and their
-regions on the profiler's clock.
+"""The pipeline ledger's stages on the recheck routes, and their regions
+on the profiler's clock.
 
-Both direct rechecks (``parallel/verify.py::verify_pieces_v2_gpu``, v2,
-and ``models/verifier.py::GPUVerifier.verify_storage``, v1) charge the
+The v2 recheck (``parallel/verify.py::verify_pieces_v2_gpu``) and every
+v1 route through ``models/verifier.py::GPUVerifier``'s recheck loop
+(``verify_storage``, ``parallel/distributed.py::verify_storage_distributed``
+at world size 1, and ``parallel/bulk.py::verify_library``) charge the
 ledger's ``stage``, ``h2d``, ``launch`` and ``digest`` once a batch, and
 ``read`` once a batch's load: once a ``Storage.read_batch`` call, less
 any wait for the pread pool's lock, or once over the concurrent calls of
@@ -33,6 +35,8 @@ from torrent_tpu_torch.models.verifier import GPUVerifier
 from torrent_tpu_torch.native.io_engine import get_engine, native_available
 from torrent_tpu_torch.obs import profiler
 from torrent_tpu_torch.obs.ledger import PipelineLedger, pipeline_ledger
+from torrent_tpu_torch.parallel.bulk import verify_library
+from torrent_tpu_torch.parallel.distributed import verify_storage_distributed
 from torrent_tpu_torch.parallel.verify import verify_pieces_v2_gpu
 from torrent_tpu_torch.session.v2 import v2_session_info
 from torrent_tpu_torch.storage.storage import FsStorage, MemoryStorage, Storage
@@ -93,7 +97,15 @@ def _n_batches(n: int, batch: int) -> int:
     return -(-n // batch)
 
 
-def _v1_recheck(storage, info):
+def _v1_recheck(storage, info, route: str = "direct"):
+    if route == "distributed":
+        bitfield, _ = verify_storage_distributed(
+            storage, info, batch_size=V1_BATCH, device="cpu", io_threads=V1_STRIPES
+        )
+        return bitfield
+    if route == "bulk":
+        result = verify_library([(storage, info)], batch_size=V1_BATCH, device="cpu", io_threads=V1_STRIPES)
+        return result.bitfields[0]
     verifier = GPUVerifier(piece_length=V1_PLEN, batch_size=V1_BATCH, device="cpu")
     return verifier.verify_storage(storage, info, io_threads=V1_STRIPES)
 
@@ -116,20 +128,22 @@ def test_v2_recheck_charges_every_stage_once_a_batch(tmp_path):
     assert d["digest"]["bytes"] == V2_FILES
 
 
-def test_v1_recheck_charges_every_stage_once_a_batch(tmp_path):
+@pytest.mark.parametrize("route", ["direct", "distributed", "bulk"])
+def test_v1_recheck_charges_every_stage_once_a_batch(tmp_path, route):
     storage, info = _v1_torrent(tmp_path)
     calls = _counted(storage)
     before = pipeline_ledger().snapshot()["stages"]
     t0 = time.monotonic()
-    bitfield = _v1_recheck(storage, info)
+    bitfield = _v1_recheck(storage, info, route)
     wall = time.monotonic() - t0
     d = _delta(before, pipeline_ledger().snapshot()["stages"])
     assert bitfield.all()
     batches = _n_batches(V1_PIECES, V1_BATCH)
     assert [d[s]["ops"] for s in ("stage", "h2d", "launch", "digest")] == [batches] * 4
     # every batch of more rows than stripes is read in stripes, each its
-    # own call, and the stripes of a batch are one read entry
-    assert len(calls) == 3 + 3 + 2
+    # own call, and the stripes of a batch are one read entry; a library
+    # reads one run a torrent in a batch
+    assert len(calls) == (batches if route == "bulk" else 3 + 3 + 2)
     assert d["read"]["ops"] == batches
     assert d["read"]["bytes"] == d["stage"]["bytes"] == info.length
     assert d["read"]["busy_s"] <= wall
@@ -180,7 +194,7 @@ def _inside(outer: dict, events: list[dict], name: str) -> list[dict]:
     ]
 
 
-@pytest.mark.parametrize("version", ["v1", "v2"])
+@pytest.mark.parametrize("version", ["v1", "v1-distributed", "v1-bulk", "v2"])
 def test_batch_regions_hold_their_stages_on_one_thread(tmp_path, version):
     """Each batch region holds this thread's wait for the loader, and the
     copy and launches of its batch; the fetch of a batch's verdicts lands
@@ -194,13 +208,13 @@ def test_batch_regions_hold_their_stages_on_one_thread(tmp_path, version):
     else:
         storage, info = _v1_torrent(tmp_path)
         batches = _n_batches(V1_PIECES, V1_BATCH)
-        run = lambda: _v1_recheck(storage, info)  # noqa: E731
+        run = lambda: _v1_recheck(storage, info, version.partition("-")[2] or "direct")  # noqa: E731
         # v1 stages its batches on the loader thread
         here = ("verify.wait_load", "pipeline.h2d", "pipeline.launch")
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         assert run().all()
     events = _regions(prof, tmp_path)
-    regions = sorted((e for e in events if e["name"] == f"verify.{version}.batch"), key=lambda e: float(e["ts"]))
+    regions = sorted((e for e in events if e["name"] == f"verify.{version[:2]}.batch"), key=lambda e: float(e["ts"]))
     assert len(regions) == batches
     assert len({e["tid"] for e in regions}) == 1
     for i, region in enumerate(regions):

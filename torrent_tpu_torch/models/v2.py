@@ -50,7 +50,7 @@ from torrent_tpu_torch.models.merkle import (
     words32_to_digests,
     zero_chain,
 )
-from torrent_tpu_torch.obs.h2d import Copy, SlabPages
+from torrent_tpu_torch.obs.h2d import Copy
 from torrent_tpu_torch.obs.profiler import annotate
 from torrent_tpu_torch.ops.padding import pad_in_place, padded_len_for
 from torrent_tpu_torch.ops.sha256_cuda import make_sha256_fn
@@ -180,7 +180,6 @@ class _LeafPlane:
             ]
             self._turn = 0
             self._copied = self._events[1][1]
-            self._pages = SlabPages(self._host, self._host_nblocks)
         self.last_copy: Copy | None = None
 
     def _wait_host_free(self) -> None:
@@ -256,7 +255,7 @@ class _LeafPlane:
         nbytes = self._host[:k].nbytes + self._host_nblocks[:k].nbytes
         self.last_copy = None
         if beside is not None:
-            self.last_copy = Copy(start, self._copied, nbytes, self._pages.local_bytes(self.device, 0, k), beside)
+            self.last_copy = Copy(start, self._copied, nbytes, beside)
         return nbytes
 
     def _rows(self, k: int) -> tuple[torch.Tensor, torch.Tensor]:

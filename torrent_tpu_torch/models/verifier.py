@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import contextlib
 import time
-from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -35,9 +34,9 @@ import torch
 
 from torrent_tpu_torch.codec.metainfo import InfoDict
 from torrent_tpu_torch.compat import to_device, to_device_on_stream
-from torrent_tpu_torch.obs.h2d import Copy, SlabPages, charge_load
+from torrent_tpu_torch.obs.h2d import Copy
 from torrent_tpu_torch.obs.ledger import pipeline_ledger
-from torrent_tpu_torch.obs.profiler import annotate, maybe_profile_batch
+from torrent_tpu_torch.obs.profiler import annotate
 from torrent_tpu_torch.ops.padding import (
     alloc_padded,
     digests_to_words,
@@ -49,6 +48,7 @@ from torrent_tpu_torch.ops.padding import (
 from torrent_tpu_torch.ops.sha1_cuda import make_sha1_fn
 from torrent_tpu_torch.ops.sha1_torch import words_to_numpy
 from torrent_tpu_torch.parallel.mesh import local_grid, round_up_to_multiple, row_blocks
+from torrent_tpu_torch.parallel.pipeline import run_batches
 from torrent_tpu_torch.parallel.verify import VerifyResult, read_runs, striped
 from torrent_tpu_torch.storage.storage import Storage
 
@@ -126,8 +126,7 @@ class _CudaSlot:
     ``fetch_ok`` its ``digest`` (the wait for the verdicts). A launch
     told whether a load runs ``beside`` it has ``fetch_ok`` charge each
     entry's copy, as the card timed it, to ``h2d_beside_load`` or
-    ``h2d_alone``, and its bytes on the card's node to ``h2d_local``
-    (``obs/h2d.py``).
+    ``h2d_alone`` (``obs/h2d.py``).
     """
 
     def __init__(self, b: int, plen: int, blocks: list, computes: list):
@@ -141,7 +140,6 @@ class _CudaSlot:
         self._entries = [_CudaEntry(hi - lo, padded_len, dev, computes[i]) for i, dev, lo, hi in blocks]
         self.ok_dev = None
         self._beside: bool | None = None
-        self._pages = SlabPages(self._host_data, self._host_nblocks)
 
     def wait_host_free(self) -> None:
         # an event never recorded is complete: the first fill never waits
@@ -189,8 +187,7 @@ class _CudaSlot:
         """Each entry's completed copy to the ledger's copy counters."""
         for (_, _, lo, hi), e in zip(self._blocks, self._entries):
             nbytes = self._host_data[lo:hi].nbytes + self._host_nblocks[lo:hi].nbytes
-            local = self._pages.local_bytes(e.device, lo, hi)
-            Copy(e.copy_start, e.copy_done, nbytes, local, beside).charge()
+            Copy(e.copy_start, e.copy_done, nbytes, beside).charge()
 
 
 class GPUVerifier:
@@ -384,20 +381,9 @@ class GPUVerifier:
     ) -> np.ndarray:
         """Full recheck → bool[n_pieces]. Disk reads overlap device work.
 
-        Two staging slots alternate: a loader thread fills one (with
-        ``io_threads`` striped reads) while the other is copied to the
-        grid and hashed. On a GPU the slots are pinned buffers, each
-        entry copies its block on its own stream, and events order every
-        reuse: a host slot is refilled only after every entry's copy
-        completed, an entry's device buffers are overwritten only after
-        its kernel completed.
-
-        The pipeline ledger (``obs/ledger.py``) is charged on the way:
-        ``read`` (one entry a batch, over its stripes: ``read_runs``) and
-        ``stage`` (the padding) on the loader thread, and the slots' ``h2d``, ``launch``
-        and ``digest`` on this one. While a profiler runs, a batch is a
-        ``verify.v1.batch`` region holding those stages' ``pipeline.*``
-        regions and this thread's ``verify.wait_load``.
+        The torrent's pieces in order, ``batch_size`` a batch, each batch
+        read in ``io_threads`` concurrent stripes, through the recheck
+        loop (:meth:`_recheck`).
         """
         if info.piece_length != self.piece_length:
             raise ValueError(
@@ -405,80 +391,107 @@ class GPUVerifier:
                 f"torrent has {info.piece_length}"
             )
         n = info.num_pieces
-        bitfield = np.zeros(n, dtype=bool)
         if n == 0:
-            return bitfield
+            return np.zeros(n, dtype=bool)
         b = self.batch_size
         plen = self.piece_length
+        rows = -(-n // b) * b  # the last batch's tail rows are sentinels, dropped
+        lengths = np.zeros(rows, dtype=np.int64)
+        lengths[:n] = np.minimum(plen, info.length - np.arange(n) * plen)
+        expected = np.zeros((rows, 5), dtype=np.uint32)
+        expected[:n] = digests_to_words(info.pieces)
+        stripes = max(1, io_threads)
+        runs = [striped(storage, range(start, min(start + b, n)), stripes) for start in range(0, n, b)]
+
+        def drained(g: int, ok, slot) -> None:
+            if progress_cb:
+                progress_cb(min((g + 1) * b, n), n)
+
+        ok, seconds = self._recheck(runs, lengths, expected, io_threads, drained)
+        bitfield = ok[:n]
+        self.last_result = VerifyResult(
+            bitfield=bitfield,
+            n_pieces=n,
+            n_valid=int(bitfield.sum()),
+            bytes_hashed=info.length,
+            seconds=seconds,
+        )
+        return bitfield
+
+    def _recheck(self, runs: list, lengths: np.ndarray, expected: np.ndarray, io_threads: int, drained):
+        """The recheck loop of every v1 route, over a row plan.
+
+        ``runs[g]`` are batch ``g``'s reads, ``(storage, piece indices,
+        rows)`` with ``rows`` a slice of the batch's rows; they fill its
+        first rows, and the rows after them are sentinels (``nblocks=0``).
+        ``lengths`` (``int64[G*B]``) and ``expected`` (``uint32[G*B, 5]``,
+        zeros, which no digest equals, on sentinel rows) are each row's
+        piece length and digest words, batch ``g`` at rows ``g*B``; the
+        expected digests go to the device once, in the set-up. Returns
+        each row's verdict (``bool[G*B]``) and the seconds of the batches;
+        ``drained(g, ok, slot)`` runs on this thread once batch ``g``'s
+        verdicts ``ok`` are in, ``slot`` the staging slot it ran on.
+
+        The batches run through ``parallel/pipeline.py``'s loop over two
+        staging slots (:meth:`staging_slots`): the loader fills one, its
+        runs read at once on ``io_threads`` threads (``read_runs``), while
+        the other is copied to the grid and hashed. On a GPU the slots are
+        pinned buffers, each entry copies its block on its own stream, and
+        events order every reuse: a host slot is refilled only after every
+        entry's copy completed, an entry's device buffers are overwritten
+        only after its kernel completed.
+
+        The pipeline ledger (``obs/ledger.py``) is charged on the way:
+        ``read`` (one entry a batch over its runs) and ``stage`` (the
+        padding) on the loader thread, and the slots' ``h2d``, ``launch``,
+        ``digest`` and copy counters on this one. While a profiler runs, a
+        batch is a ``verify.v1.batch`` region holding those stages'
+        ``pipeline.*`` regions and this thread's ``verify.wait_load``; the
+        loader's wait for a free slot is a ``verify.wait_host_free``
+        region, and the set-up a ``verify.setup`` one.
+        """
+        b, plen = self.batch_size, self.piece_length
+        ok = np.zeros(len(lengths), dtype=bool)
+        if not runs:
+            return ok, 0.0
         with annotate("verify.setup"):
-            # expected digests go to the device once per torrent; the tail
-            # rows of the last batch compare against zeros and are dropped
-            expected = np.zeros((-(-n // b) * b, 5), dtype=np.uint32)
-            expected[:n] = digests_to_words(info.pieces)
             expected_dev = self.expected_rows(expected)
             slots = self.staging_slots()
         stripes = max(1, io_threads)
         io_pool = ThreadPoolExecutor(max_workers=stripes) if stripes > 1 else None
         led = pipeline_ledger()
 
-        def load(slot, start: int) -> int:
-            charge_load(self.device)
+        def load(g: int) -> int:
+            slot = slots[g % 2]
             with annotate("verify.wait_host_free"):
                 slot.wait_host_free()
             padded = slot.padded
             view = padded[:, :plen]
-            idxs = range(start, min(start + b, n))
-            k = len(idxs)
-            read_runs(striped(storage, idxs, view, stripes), io_pool)
-            lengths = np.zeros(b, dtype=np.int64)
-            lengths[:k] = np.minimum(plen, info.length - np.arange(start, start + k) * plen)
-            with led.track("stage", int(lengths.sum())):
+            read_runs([(storage, idxs, view[rows]) for storage, idxs, rows in runs[g]], io_pool)
+            k = sum(len(idxs) for _, idxs, _ in runs[g])
+            batch_lengths = lengths[g * b : (g + 1) * b]
+            with led.track("stage", int(batch_lengths.sum())):
                 padded[:, plen:] = 0  # clear pad tail (stale 0x80/bitlen bytes)
                 if k < b:
                     padded[k:] = 0
-                slot.nblocks[:] = pad_in_place(padded, lengths)
+                slot.nblocks[:] = pad_in_place(padded, batch_lengths)
                 slot.nblocks[k:] = 0  # sentinel rows
             return k
 
-        # One batch in flight beyond the one being launched: the result of
-        # batch i is read after batch i+1 is queued, so the kernel of i+1
-        # overlaps the host's wait for i, and host memory stays bounded
-        # by the two slots. The last batch drains every result inside its
-        # own profiler region.
-        inflight: deque = deque()
+        def launch(g: int, k: int, beside: bool) -> tuple[int, int]:
+            slots[g % 2].launch(self._sha1, expected_dev, g, beside=beside)
+            return g, k
 
-        def drain_one():
-            start_i, k_i, slot = inflight.popleft()
-            bitfield[start_i : start_i + k_i] = slot.fetch_ok()[:k_i]
-            if progress_cb:
-                progress_cb(min(start_i + b, n), n)
+        def drain(pending: tuple[int, int]) -> None:
+            g, k = pending
+            rows = ok[g * b : g * b + k]
+            rows[:] = slots[g % 2].fetch_ok()[:k]
+            drained(g, rows, slots[g % 2])
 
         t0 = time.perf_counter()
         try:
-            with ThreadPoolExecutor(max_workers=1) as loader:
-                fut = loader.submit(load, slots[0], 0)
-                start, cur = 0, 0
-                while start < n:
-                    with maybe_profile_batch("verify.v1.batch"):
-                        with annotate("verify.wait_load"):
-                            k = fut.result()
-                        next_start = start + b
-                        if next_start < n:
-                            fut = loader.submit(load, slots[1 - cur], next_start)
-                        # the last batch's copy runs alone: its load is done
-                        slots[cur].launch(self._sha1, expected_dev, start // b, beside=not fut.done())
-                        inflight.append((start, k, slots[cur]))
-                        while len(inflight) > (1 if next_start < n else 0):
-                            drain_one()
-                    start, cur = next_start, 1 - cur
+            run_batches(len(runs), load, launch, drain, "verify.v1.batch")
         finally:
             if io_pool is not None:
                 io_pool.shutdown(wait=False)
-        self.last_result = VerifyResult(
-            bitfield=bitfield,
-            n_pieces=n,
-            n_valid=int(bitfield.sum()),
-            bytes_hashed=info.length,
-            seconds=time.perf_counter() - t0,
-        )
-        return bitfield
+        return ok, time.perf_counter() - t0

@@ -40,17 +40,15 @@ Stage boundaries (instrumentation sites):
   the overlap integral and the ``active`` counts never see it, and
   ``obs/attrib.py`` never takes it for the limiting stage (a wait is not
   work): it is one of ``PipelineLedger.COUNTERS``.
-* ``h2d_alone``, ``h2d_beside_load``, ``h2d_local``, ``load_local`` —
-  counters, not stages, on the direct recheck paths (``obs/h2d.py``):
-  each slot copy's bytes and seconds on the card, split by whether a
-  load ran beside it; the bytes of it on the card's NUMA node; the loads
-  that started on a CPU of that node. Charged by
-  :meth:`PipelineLedger.record` after the path has waited for the
+* ``h2d_alone``, ``h2d_beside_load`` — counters, not stages, on the
+  recheck routes (``obs/h2d.py``): each slot copy's bytes and seconds on
+  the card, split by whether a load ran beside it. Charged by
+  :meth:`PipelineLedger.record` after the route has waited for the
   batch; like ``read_wait``, ``PipelineLedger.COUNTERS``.
 * ``stage``   — the staging-slot copy (``sched._StagingSlots.stage``).
   ZERO bytes on the zero-copy ingest path: ``read_pieces_into`` lands
   reads directly in the launch slab, so this stage only records for
-  byte-path and mixed-slab launches. On the direct recheck paths, the
+  byte-path and mixed-slab launches. On the recheck routes, the
   padding of a loaded batch (v1, on the loader thread) and the leaf
   staging (v2).
 * ``h2d``     — host→device transfer: the explicit device put on every
@@ -163,7 +161,7 @@ class PipelineLedger:
 
     # charged by record() beside the stages: a wait, or a part of work a
     # stage already holds; never the attributor's limiting stage
-    COUNTERS = frozenset(("read_wait", "h2d_alone", "h2d_beside_load", "h2d_local", "load_local"))
+    COUNTERS = frozenset(("read_wait", "h2d_alone", "h2d_beside_load"))
 
     def __init__(self):
         from torrent_tpu_torch.obs.profiler import annotate, profiling

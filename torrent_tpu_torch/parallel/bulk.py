@@ -22,14 +22,13 @@ with foreground verify traffic instead of competing for the plane.
 from __future__ import annotations
 
 import time
-from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
 
 from torrent_tpu_torch.codec.metainfo import InfoDict
-from torrent_tpu_torch.ops.padding import alloc_padded, digests_to_words, pad_in_place
-from torrent_tpu_torch.parallel.verify import read_runs, verify_pieces_cpu
+from torrent_tpu_torch.ops.padding import digests_to_words
+from torrent_tpu_torch.parallel.verify import verify_pieces_cpu
 from torrent_tpu_torch.storage.storage import Storage
 
 
@@ -69,7 +68,10 @@ def verify_library(
     plain PyTorch path).
     ``verifier``: reuse a ``GPUVerifier`` across calls (its geometry
     must match every torrent's piece length) — repeated library sweeps
-    then skip the set-up entirely.
+    then skip building it.
+    The device path runs each geometry's rows through the verifier's
+    recheck loop (``models/verifier.py``): pinned staging slots, the
+    next batch read while this one is copied and hashed.
     """
     t0 = time.perf_counter()
     bitfields = [np.zeros(info.num_pieces, dtype=bool) for _, info in items]
@@ -99,6 +101,13 @@ def verify_library(
         groups.setdefault(info.piece_length, []).append(idx)
 
     done = 0
+
+    def drained(g: int, ok, slot) -> None:
+        nonlocal done
+        done += len(ok)
+        if progress_cb:
+            progress_cb(done, total_pieces)
+
     for plen, group in groups.items():
         if verifier is not None:
             if verifier.piece_length != plen:
@@ -113,69 +122,30 @@ def verify_library(
                 devices=devices, mesh=mesh,
             )
         b = group_verifier.batch_size
-        # Flattened torrent-major work list: rows of one batch that belong
-        # to the same torrent are contiguous, so loads stay batched reads.
-        work: list[tuple[int, int]] = [
-            (ti, pi) for ti in group for pi in range(items[ti][1].num_pieces)
-        ]
-        expected = {
-            ti: digests_to_words(items[ti][1].pieces) for ti in group
-        }
-        staging = [alloc_padded(b, plen) for _ in range(2)]
-        stripes = max(1, io_threads)
-        io_pool = ThreadPoolExecutor(max_workers=stripes) if stripes > 1 else None
-
-        def load(slot: int, start: int):
-            padded, view = staging[slot]
-            rows = work[start : start + b]
-            k = len(rows)
-            lengths = np.zeros(b, dtype=np.int64)
-            exp = np.zeros((b, 5), dtype=np.uint32)
-            # contiguous per-torrent runs → one read_batch per run
-            runs = []
-            row = 0
-            while row < k:
-                ti = rows[row][0]
-                run_end = row
-                while run_end < k and rows[run_end][0] == ti:
-                    run_end += 1
-                idxs = [pi for _, pi in rows[row:run_end]]
-                storage, info = items[ti]
-                runs.append((storage, idxs, view[row:run_end]))
-                for j, pi in enumerate(idxs):
-                    lengths[row + j] = min(plen, info.length - pi * plen)
-                    exp[row + j] = expected[ti][pi]
-                row = run_end
-            read_runs(runs, io_pool)
-            padded[:, plen:] = 0
-            if k < b:
-                padded[k:] = 0
-            nblocks = pad_in_place(padded, lengths)
-            if k < b:
-                nblocks[k:] = 0
-            return padded, nblocks, exp, rows
-
-        try:
-            with ThreadPoolExecutor(max_workers=1) as pool:
-                fut = pool.submit(load, 0, 0)
-                start = 0
-                slot = 0
-                while start < len(work):
-                    padded, nblocks, exp, rows = fut.result()
-                    nxt = start + b
-                    if nxt < len(work):
-                        slot = 1 - slot
-                        fut = pool.submit(load, slot, nxt)
-                    ok = group_verifier.verify_batch(padded, nblocks, exp)
-                    for j, (ti, pi) in enumerate(rows):
-                        bitfields[ti][pi] = ok[j]
-                    done += len(rows)
-                    if progress_cb:
-                        progress_cb(done, total_pieces)
-                    start = nxt
-        finally:
-            if io_pool is not None:
-                io_pool.shutdown(wait=False)
+        # Flattened torrent-major rows: the rows of one batch that belong
+        # to the same torrent are contiguous, so each is one batched read.
+        n_batches = -(-sum(items[ti][1].num_pieces for ti in group) // b)
+        lengths = np.zeros(n_batches * b, dtype=np.int64)
+        expected = np.zeros((n_batches * b, 5), dtype=np.uint32)
+        runs: list[list] = [[] for _ in range(n_batches)]
+        row = 0
+        for ti in group:
+            storage, info = items[ti]
+            n = info.num_pieces
+            lengths[row : row + n] = np.minimum(plen, info.length - np.arange(n) * plen)
+            expected[row : row + n] = digests_to_words(info.pieces)
+            pi = 0
+            while pi < n:  # one run in each batch the torrent's rows reach
+                g, r = divmod(row, b)
+                take = min(n - pi, b - r)
+                runs[g].append((storage, range(pi, pi + take), slice(r, r + take)))
+                pi += take
+                row += take
+        ok, _ = group_verifier._recheck(runs, lengths, expected, io_threads, drained)
+        row = 0
+        for ti in group:
+            bitfields[ti] = ok[row : row + items[ti][1].num_pieces]
+            row += len(bitfields[ti])
 
     return LibraryResult(bitfields, total_pieces, total_bytes, time.perf_counter() - t0)
 

@@ -36,7 +36,6 @@ from __future__ import annotations
 
 import math
 import os
-from concurrent.futures import ThreadPoolExecutor
 from datetime import timedelta
 
 import numpy as np
@@ -229,17 +228,16 @@ def verify_storage_distributed(
     ``p`` hashes on row ``p``, its ``D`` entries. ``batch_size`` rounds
     up to a multiple of the grid's size, as the reference's verifier's
     does, and each rank owns one ``GPUVerifier`` of batch ``L =
-    batch_size / world_size`` over its entries: it reads its rows of
-    each global batch into the verifier's two staging slots, a loader
-    thread filling one while the other is hashed, each entry its block
-    of ``L / D`` rows. Every rank enters the count collective once per
-    global batch, also with an empty tail slice: a rank that left early
-    would deadlock its peers.
+    batch_size / world_size`` over its entries, whose recheck loop reads
+    the rank's rows of each global batch (in ``io_threads`` stripes) and
+    hashes them, each entry its block of ``L / D`` rows. Every rank
+    enters the count collective once per global batch, also with an
+    empty tail slice: a rank that left early would deadlock its peers.
     """
     from torrent_tpu_torch.models.verifier import GPUVerifier
-    from torrent_tpu_torch.ops.padding import digests_to_words, pad_in_place
+    from torrent_tpu_torch.ops.padding import digests_to_words
     from torrent_tpu_torch.parallel.mesh import round_up_to_multiple, spanning_grid
-    from torrent_tpu_torch.parallel.verify import read_runs, striped
+    from torrent_tpu_torch.parallel.verify import striped
 
     nproc, pid = world()
     grid = spanning_grid(device, devices, mesh)
@@ -253,72 +251,32 @@ def verify_storage_distributed(
     n = info.num_pieces
     plen = info.piece_length
     n_batches = math.ceil(n / B)
-    # this rank's expected digests, row r of batch g at g*L + r; rows
-    # past the torrent stay zero and never match
+    # this rank's rows, row r of batch g at g*L + r; rows past the
+    # torrent stay zero and never match
     expected_all = digests_to_words(info.pieces)
     expected = np.zeros((n_batches * L, 5), dtype=np.uint32)
+    lengths = np.zeros(n_batches * L, dtype=np.int64)
+    spans = []  # (first piece, pieces) of this rank's slice of each batch
     for g in range(n_batches):
         lo = g * B + pid * L
-        hi = min(lo + L, n)
-        if hi > lo:
-            expected[g * L : g * L + hi - lo] = expected_all[lo:hi]
-    expected_dev = verifier.expected_rows(expected)
-    local_contrib = np.zeros(n, dtype=bool)
-    slots = verifier.staging_slots()
-    stripes = max(1, io_threads)
-    io_pool = ThreadPoolExecutor(max_workers=stripes) if stripes > 1 else None
-
-    def load(slot, g: int) -> range:
-        # a slot is refilled only after its last host→device copy ended
-        slot.wait_host_free()
-        padded = slot.padded
-        view = padded[:, :plen]
-        lo = g * B + pid * L
-        idxs = range(lo, min(lo + L, n))
-        k = len(idxs)
-        if k:
-            read_runs(striped(storage, idxs, view, stripes), io_pool)
-        padded[:, plen:] = 0  # clear pad tail (stale 0x80/bitlen bytes)
-        if k < L:
-            padded[k:] = 0
-        lengths = np.zeros(L, dtype=np.int64)
-        lengths[:k] = np.minimum(plen, info.length - np.arange(lo, lo + k) * plen)
-        slot.nblocks[:] = pad_in_place(padded, lengths)
-        slot.nblocks[k:] = 0  # sentinel rows
-        return idxs
-
+        k = max(0, min(lo + L, n) - lo)
+        spans.append((lo, k))
+        expected[g * L : g * L + k] = expected_all[lo : lo + k]
+        lengths[g * L : g * L + k] = np.minimum(plen, info.length - np.arange(lo, lo + k) * plen)
+    runs = [striped(storage, range(lo, lo + k), max(1, io_threads)) for lo, k in spans]
     total = None
-    pending = None  # (g, idxs, slot) launched, not yet drained
 
-    def drain(g: int, idxs: range, slot) -> None:
+    def drained(g: int, ok, slot) -> None:
         nonlocal total
-        ok = slot.fetch_ok()
-        local_contrib[idxs.start : idxs.stop] = ok[: len(idxs)]
         count = psum_valid_count(slot.ok_dev)
         total = count if total is None else total + count
         if progress_cb:
             progress_cb(min((g + 1) * B, n), n)
 
-    try:
-        with ThreadPoolExecutor(max_workers=1) as loader:
-            fut = loader.submit(load, slots[0], 0)
-            for g in range(n_batches):
-                idxs = fut.result()
-                if g + 1 < n_batches:
-                    # refills the slot of batch g-1 once its copy ended;
-                    # its result lives apart from the host buffers
-                    fut = loader.submit(load, slots[(g + 1) % 2], g + 1)
-                slot = slots[g % 2]
-                slot.launch(verifier._sha1, expected_dev, g)
-                if pending is not None:
-                    # the kernel of batch g runs while batch g-1 is counted
-                    drain(*pending)
-                pending = (g, idxs, slot)
-            if pending is not None:
-                drain(*pending)
-    finally:
-        if io_pool is not None:
-            io_pool.shutdown(wait=False)
+    ok, _ = verifier._recheck(runs, lengths, expected, io_threads, drained)
+    local_contrib = np.zeros(n, dtype=bool)
+    for g, (lo, k) in enumerate(spans):
+        local_contrib[lo : lo + k] = ok[g * L : g * L + k]
     bitfield = allgather_bitfield(local_contrib)
     return bitfield, 0 if total is None else int(total.item())
 

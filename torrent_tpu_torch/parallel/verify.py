@@ -191,8 +191,9 @@ def verify_pieces_v2_gpu(
     thread each batch's ``stage``, ``h2d``, ``launch`` and ``digest``;
     after the digest, the batch's copy as the card timed it
     (``h2d_beside_load`` while the next read ran as it was enqueued, else
-    ``h2d_alone``) and its bytes on the card's node (``h2d_local``), and
-    at each read's start ``load_local`` (``obs/h2d.py``).
+    ``h2d_alone``: ``obs/h2d.py``). The batches of a pad group run through
+    ``parallel/pipeline.py``'s loop; the expected roots go to the device
+    once, in the set-up.
     While a profiler runs, a batch is a ``verify.v2.batch`` region
     holding those stages' ``pipeline.*`` regions and this thread's waits
     (``verify.wait_load``, ``verify.wait_host_free``), and the set-up a
@@ -203,16 +204,14 @@ def verify_pieces_v2_gpu(
     Other keyword arguments of the v1 path (``io_threads``) are accepted
     and ignored, as in the reference.
     """
-    from concurrent.futures import ThreadPoolExecutor
-
     import torch
 
     from torrent_tpu_torch.compat import to_device
     from torrent_tpu_torch.models.merkle import _merkle_reduce_fused, digests_to_words32
     from torrent_tpu_torch.models.v2 import _host_copy, _LeafPlane
-    from torrent_tpu_torch.obs.h2d import charge_load
     from torrent_tpu_torch.obs.ledger import pipeline_ledger
-    from torrent_tpu_torch.obs.profiler import annotate, maybe_profile_batch
+    from torrent_tpu_torch.obs.profiler import annotate
+    from torrent_tpu_torch.parallel.pipeline import run_batches
 
     n = info.num_pieces
     bitfield = np.zeros(n, dtype=bool)
@@ -230,17 +229,16 @@ def verify_pieces_v2_gpu(
         plane = _LeafPlane(min(batch_size, n_todo) * max(by_pad), device)
         plen = info.piece_length
         bufs = [np.empty((min(batch_size, n_todo), plen), dtype=np.uint8) for _ in range(2)]
-        expected = digests_to_words32(info.pieces)
+        # in the order the batches run: a batch's roots are one slice
+        order = [idx for group in by_pad.values() for idx in group]
+        expected = to_device(digests_to_words32([info.pieces[idx] for idx in order]), plane.device)
     led = pipeline_ledger()
     row_bytes = plane.padded.shape[1]
     done = 0
 
-    def read(batch, buf):
-        charge_load(plane.device)
-        return storage.read_batch(batch, out=buf[: len(batch)])
-
-    def finish(batch, ok_len, get_ok, copy) -> None:
+    def finish(pending) -> None:
         nonlocal done
+        batch, ok_len, get_ok, copy = pending
         with led.track("digest", len(batch)):
             ok = get_ok()
         if copy is not None:
@@ -250,51 +248,44 @@ def verify_pieces_v2_gpu(
         if progress_cb:
             progress_cb(done, n_todo)
 
-    # Each batch is one profiler region (the first N captured under
-    # TORRENT_TPU_PROFILE) holding this thread's stages: the wait for the
-    # loader's read, the staging, the copy, the launches and the fetch of
-    # the previous batch's verdicts (the last batch's own, too).
-    with ThreadPoolExecutor(max_workers=1) as loader:
-        for pad, group in by_pad.items():
-            batches = [group[s : s + batch_size] for s in range(0, len(group), batch_size)]
-            fut = loader.submit(read, batches[0], bufs[0])
-            pending = None
-            for bi, batch in enumerate(batches):
-                with maybe_profile_batch("verify.v2.batch"):
-                    with annotate("verify.wait_load"):
-                        buf, lengths = fut.result()
-                    if bi + 1 < len(batches):
-                        fut = loader.submit(read, batches[bi + 1], bufs[(bi + 1) % 2])
-                    ok_len = lengths == np.asarray([info.piece_sizes[p] for p in batch])
-                    m = len(batch)
-                    with led.track("stage", int(lengths.sum())):
-                        plane.stage_pieces(buf, lengths, pad)
-                    with led.track("h2d") as copied:
-                        # a group's last copy has no read left beside it
-                        copied.add(plane.copy_in(m * pad, beside=not fut.done()))
-                    with led.track("launch", m * pad * row_bytes):
-                        roots = _merkle_reduce_fused(plane.launch_grid(m, pad), pad.bit_length() - 1)
-                        want = to_device(expected[batch], plane.device)
-                        ok = (roots == want).all(dim=1).to(torch.int32)
-                        fetch = _host_copy(ok)
-                    if pending is not None:
-                        finish(*pending)
-                    pending = (batch, ok_len, fetch, plane.last_copy)
-                    if bi + 1 == len(batches):
-                        finish(*pending)
+    first = 0  # the group's first row of ``expected``
+    for pad, group in by_pad.items():
+        batches = [group[s : s + batch_size] for s in range(0, len(group), batch_size)]
+
+        def read(bi: int):
+            return storage.read_batch(batches[bi], out=bufs[bi % 2][: len(batches[bi])])
+
+        def launch(bi: int, loaded, beside: bool):
+            buf, lengths = loaded
+            batch = batches[bi]
+            ok_len = lengths == np.asarray([info.piece_sizes[p] for p in batch])
+            m = len(batch)
+            with led.track("stage", int(lengths.sum())):
+                plane.stage_pieces(buf, lengths, pad)
+            with led.track("h2d") as copied:
+                copied.add(plane.copy_in(m * pad, beside=beside))
+            with led.track("launch", m * pad * row_bytes):
+                roots = _merkle_reduce_fused(plane.launch_grid(m, pad), pad.bit_length() - 1)
+                lo = first + bi * batch_size
+                ok = (roots == expected[lo : lo + m]).all(dim=1).to(torch.int32)
+                fetch = _host_copy(ok)
+            return batch, ok_len, fetch, plane.last_copy
+
+        run_batches(len(batches), read, launch, finish, "verify.v2.batch")
+        first += len(group)
     return bitfield
 
 
-def striped(storage: Storage, idxs, out: np.ndarray, stripes: int) -> list:
-    """Pieces ``idxs`` of ``storage`` and the rows of ``out`` they fill,
-    as at most ``stripes`` contiguous ``(storage, indices, rows)`` runs
-    for :func:`read_runs` (one run when there are no more rows than
-    stripes)."""
+def striped(storage: Storage, idxs, stripes: int) -> list:
+    """Pieces ``idxs`` of ``storage`` as at most ``stripes`` contiguous
+    ``(storage, indices, rows)`` runs, ``rows`` the slice of a batch's
+    rows each fills from row 0 (one run when there are no more pieces
+    than stripes, none for no pieces)."""
     k = len(idxs)
     if k <= stripes:
-        return [(storage, idxs, out[:k])]
+        return [(storage, idxs, slice(0, k))] if k else []
     step = -(-k // stripes)
-    return [(storage, idxs[s : s + step], out[s : min(s + step, k)]) for s in range(0, k, step)]
+    return [(storage, idxs[s : s + step], slice(s, min(s + step, k))) for s in range(0, k, step)]
 
 
 def read_runs(runs: list, pool=None) -> None:
